@@ -3,13 +3,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in openmcmc_tpu_torch/csrc,
-holds each kernel against its plain PyTorch version on the card, drives the
+holds each kernel against its plain PyTorch version on the card, and drives the
 flagship smoother (bench.py's model: p = 100 RW1 GMRF, 8192 chains, 200 burn-in
-and 500 stored sweeps) through ``MCMC(..., device="cuda").run(engine="auto")``,
-checks that the run went through the spectral-smoother kernel and that its
-draws are right, and times the kernels against their plain versions with CUDA
-events. Every phase raises on failure; the script exits non-zero and prints no
-result when there is no CUDA device. It imports nothing of JAX.
+and 500 stored sweeps) through both of the port's paths:
+
+- ``MCMC(...).run(engine="auto")``, the fused path: one launch of the
+  spectral-smoother kernel (K1), its draws held against the plain version;
+- ``MCMC(...).run(engine="generic")``, the generic driver: one launch of the
+  canonical tridiagonal kernel (K3) per sweep, its posterior means held against
+  the fused run's within the Monte Carlo bound.
+
+Each path runs with every launch count set to 0 just before it and read just
+after. The kernels are timed against their plain versions with CUDA events,
+beside the least time the card could take for the same work (``bound_ms``).
+Every phase raises on failure; the script exits non-zero and prints no result
+when there is no CUDA device. It imports nothing of JAX.
 
 Output: one line per phase; then the card's name and power limit as nvidia-smi
 reports them; then one JSON line with the kernels' results; and last
@@ -22,15 +30,35 @@ import json
 import statistics
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
 
 N_TIME, N_CHAINS, N_BURN, N_ITER, SEED = 100, 8192, 200, 500, 7
+DEVICE_TYPE = "cuda"
 REPLACES = {
     "spectral_smoother": "openmcmc_tpu/fused/spectral.py:319",
     "prng_draws": "openmcmc_tpu/fused/prng.py:178",
+    "tridiag_canonical": "openmcmc_tpu/linalg/pallas_tridiag.py:43",
 }
+# H100 SXM data sheet: HBM bandwidth and the float32 rate outside the tensor cores
+# (TF32 is excluded: the port keeps full float32, ROADMAP.md's invariant)
+PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
+# float32 operations counted from the kernel sources (transcendentals, square
+# roots and divisions one each; Philox's integer rounds are not counted)
+K1_FLOP_PER_COORD = 49   # csrc/spectral_smoother.cu: inverse-CDF normal 30, w draw 12, quadratic forms 7
+K1_FLOP_PER_SWEEP = 100  # the (lam, tau) Gamma pair, one Marsaglia-Tsang round each, and the rates
+K1_FLOP_PER_STORE = 30   # the analytic log posterior; the store adds 2 p^2 for b = V w
+K2_FLOP_PER_ROW = 222    # csrc/prng_draws.cu: 4 uniforms, 4 inverse-CDF normals, a Gamma pair
+K3_FLOP_PER_ELEM = 21    # csrc/tridiag_canonical.cu: Box-Muller 9, forward step 8, back step 4
+
+
+def bound(n_bytes, n_flop):
+    """The least time (ms) the card could take: bytes over HBM bandwidth or
+    float32 operations over the peak rate, whichever is larger, and which."""
+    t_bytes, t_ops = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * n_flop / PEAK_FP32_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def log(phase, msg):
@@ -103,8 +131,11 @@ def prng_phase(dev):
     prng.draws(SEED, ctr, a1, a2)  # warm-up
     ms = cuda_ms(lambda: prng.draws(SEED, ctr, a1, a2), 5)
     plain_ms = cuda_ms(lambda: prng.draws_plain(SEED, ctr, a1, a2), 3)
-    log("prng", f"time at {ctr.shape[0]} rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    n = ctr.shape[0]
+    bound_ms, bound_by = bound(n * (16 + 16 + 16 + 8), n * K2_FLOP_PER_ROW)
+    log("prng", f"time at {n} rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def rw1_p0(p, ridge):
@@ -174,7 +205,7 @@ def spectral_small_phase(dev):
             f"(rtol 1e-4), max abs err {err:.3g}")
 
 
-def build_mcmc(dev, n_chains=N_CHAINS):
+def build_mcmc(dev, n_chains=None):
     """bench.py's model in the port: RW1 prior over 60 s with a 1e-3 ridge."""
     from openmcmc_tpu_torch import MCMC, Model
     from openmcmc_tpu_torch.distributions import Gamma, Normal
@@ -197,36 +228,76 @@ def build_mcmc(dev, n_chains=N_CHAINS):
         "a_lam": 10.0, "b_lam": 1.0, "tau": 1.0, "P_tau": st.Diagonal(torch.ones(N_TIME)),
         "a_tau": 1.0, "b_tau": 1.0,
     }
-    return MCMC(state, samplers, mdl, n_burn=N_BURN, n_iter=N_ITER, n_chains=n_chains, seed=SEED,
+    return MCMC(state, samplers, mdl, n_burn=N_BURN, n_iter=N_ITER, n_chains=n_chains or N_CHAINS, seed=SEED,
                 store_names=["b", "tau", "lambda"], device=dev)
 
 
-def main_path_phase(dev):
-    from openmcmc_tpu_torch.diagnostics import ess_per_param
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
     from openmcmc_tpu_torch.fused import prng, spectral
+    from openmcmc_tpu_torch.linalg import tridiag
+
+    spectral.smoother_sweeps_kernel.launches = 0
+    prng.draws.launches = 0
+    tridiag.sample_canonical_tridiag_kernel.launches = 0
+
+
+def read_launches():
+    from openmcmc_tpu_torch.fused import prng, spectral
+    from openmcmc_tpu_torch.linalg import tridiag
+
+    return {"spectral_smoother": spectral.smoother_sweeps_kernel.launches, "prng_draws": prng.draws.launches,
+            "tridiag_canonical": tridiag.sample_canonical_tridiag_kernel.launches}
+
+
+def check_store(res, path):
+    b = res.store["b"]
+    if tuple(b.shape) != (N_CHAINS, N_ITER, N_TIME, 1) or b.device.type != DEVICE_TYPE:
+        raise AssertionError(f"{path}: store b {tuple(b.shape)} on {b.device}")
+    for name in ("tau", "lambda"):
+        if tuple(res.store[name].shape) != (N_CHAINS, N_ITER, 1, 1):
+            raise AssertionError(f"{path}: store {name} {tuple(res.store[name].shape)}")
+    if tuple(res.log_post.shape) != (N_CHAINS, N_ITER):
+        raise AssertionError(f"{path}: log_post {tuple(res.log_post.shape)}")
+    for name, v in (*res.store.items(), ("log_post", res.log_post)):
+        if not bool(torch.all(torch.isfinite(v))):
+            raise AssertionError(f"{path}: non-finite values in {name}")
+    tau_mean = float(res.store["tau"].mean())
+    if not 0.5 <= tau_mean <= 2.0:
+        raise AssertionError(f"{path}: tau posterior mean {tau_mean} outside [0.5, 2.0]")
+    return tau_mean
+
+
+def posterior_moments(res):
+    """Per coordinate of b, lambda and tau: posterior mean, sd and multi-chain ESS."""
+    from openmcmc_tpu_torch.diagnostics import ess_per_param
+
+    out = {}
+    for name in ("b", "lambda", "tau"):
+        d = res.store[name][..., 0]  # (chains, n_iter, dims)
+        mean = torch.mean(d, dim=(0, 1), dtype=torch.float64)
+        sd = torch.sqrt(torch.clamp(torch.mean(d * d, dim=(0, 1), dtype=torch.float64) - mean * mean, min=0.0))
+        out[name] = (mean, sd, ess_per_param(d, chunk_size=8).double())
+    return out
+
+
+def main_path_phase(dev):
+    from openmcmc_tpu_torch.fused import spectral
     from openmcmc_tpu_torch.linalg import structured as st
 
     mcmc = build_mcmc(dev)
-    spectral.smoother_sweeps_kernel.launches = 0
-    prng.draws.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = mcmc.run(engine="auto")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"spectral_smoother": spectral.smoother_sweeps_kernel.launches, "prng_draws": prng.draws.launches}
+    launches = read_launches()
     if res.engine != "fused_smoother_spectral":
         raise AssertionError(f"main path dispatched to {res.engine}")
-    if launches["spectral_smoother"] != 1:
-        raise AssertionError(f"spectral smoother kernel launched {launches['spectral_smoother']} times, not once")
+    if launches != {"spectral_smoother": 1, "prng_draws": 0, "tridiag_canonical": 0}:
+        raise AssertionError(f"fused path: kernel launches {launches}, not one spectral_smoother launch")
+    tau_mean = check_store(res, "fused path")
     b = res.store["b"]
-    if tuple(b.shape) != (N_CHAINS, N_ITER, N_TIME, 1) or b.device.type != "cuda":
-        raise AssertionError(f"store b: {tuple(b.shape)} on {b.device}")
-    for name in ("tau", "lambda"):
-        if tuple(res.store[name].shape) != (N_CHAINS, N_ITER, 1, 1):
-            raise AssertionError(f"store {name}: {tuple(res.store[name].shape)}")
-    for name, v in (*res.store.items(), ("log_post", res.log_post)):
-        if not bool(torch.all(torch.isfinite(v))):
-            raise AssertionError(f"non-finite values in {name}")
     log("main", f"MCMC.run(engine='auto'): engine {res.engine}, kernel launches {launches}, "
         f"b {tuple(b.shape)}, first run {wall:.3f} s (build already done)")
 
@@ -247,13 +318,11 @@ def main_path_phase(dev):
         raise AssertionError(f"only {agree} of {N_CHAINS} chains agree with the plain version")
     log("main", f"{agree} of {N_CHAINS} chains agree with the plain version (rtol 1e-4); max abs err {err:.3g}")
 
-    tau_mean = float(res.store["tau"].mean())
-    if not 0.5 <= tau_mean <= 2.0:
-        raise AssertionError(f"tau posterior mean {tau_mean} outside [0.5, 2.0]")
-    ess_b = float(ess_per_param(b[..., 0], chunk_size=8).mean())
+    moments = posterior_moments(res)
+    ess_b = float(moments["b"][2].mean())
     log("main", f"tau posterior mean {tau_mean:.4f}; mean ESS of b {ess_b:.1f} over {N_CHAINS * N_ITER} draws")
     del res, got, b
-    return mcmc, args, kw, hyp, launches, err, ess_b
+    return mcmc, args, kw, hyp, launches, err, ess_b, moments
 
 
 def timing_phase(mcmc, args, kw, hyp, ess_b, smi):
@@ -277,10 +346,188 @@ def timing_phase(mcmc, args, kw, hyp, ess_b, smi):
         walls.append(time.perf_counter() - t0)
         del res
     e2e = statistics.median(walls)
+    # bytes: V, the eigenvalues and projections, lam0/tau0 in; b, lam, tau, log_post out
+    p, n_keep, n_sweeps = N_TIME, hyp["n_keep"], hyp["n_burn"] + hyp["n_keep"] * hyp["n_thin"]
+    n_bytes = 4 * (p * p + 3 * p + 2 * N_CHAINS + N_CHAINS * n_keep * (p + 3))
+    n_flop = N_CHAINS * (n_sweeps * (K1_FLOP_PER_COORD * p + K1_FLOP_PER_SWEEP)
+                         + n_keep * (2 * p * p + K1_FLOP_PER_STORE))
+    bound_ms, bound_by = bound(n_bytes, n_flop)
     log("time", f"{smi}: spectral kernel {ms:.3f} ms (median of 5), plain {plain_ms:.1f} ms (median of 3), "
+        f"bound {bound_ms:.3f} ms ({bound_by}: {n_flop:.3g} FLOP, {n_bytes:.3g} B), "
         f"MCMC.run end to end {1e3 * e2e:.3f} ms (median of 5)")
     log("time", f"{smi}: ESS/s {ess_b / (ms / 1e3):.4g} on kernel time, {ess_b / e2e:.4g} end to end")
-    return ms, plain_ms
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def tridiag_inputs(dev, n_chains, p, seed):
+    """Per-chain diagonally dominant tridiagonal Q = (a, c) and b on the card."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1.0, 1.0, (n_chains, p))
+    c[:, -1] = 0.0
+    a = 2.5 + rng.uniform(0.0, 3.0, (n_chains, p))
+    b = rng.normal(size=(n_chains, p))
+    return [torch.as_tensor(t, dtype=torch.float32, device=dev) for t in (a, c, b)]
+
+
+def tridiag_phase(dev, smi):
+    """K3 against its plain version on the same Philox bits, value for value, at
+    the main path's shape and at a ragged one; then its draw's moments."""
+    from openmcmc_tpu_torch.linalg import tridiag
+
+    worst = 0.0
+    for n_chains, p in ((N_CHAINS, N_TIME), (1000, 4099)):
+        a, c, b = tridiag_inputs(dev, n_chains, p, seed=p)
+        got = tridiag.sample_canonical_tridiag(SEED, 123, a, c, b)
+        want = tridiag.sample_canonical_tridiag_plain(SEED, 123, a, c, b)
+        torch.cuda.synchronize()
+        close = torch.isclose(got, want, rtol=1e-4, atol=1e-5)
+        if tuple(got.shape) != tuple(a.shape) or not bool(close.all()):
+            raise AssertionError(f"tridiag kernel at ({n_chains}, {p}): {int((~close).sum())} values differ "
+                                 "from the plain version (rtol 1e-4, atol 1e-5)")
+        err = float(torch.max(torch.abs(got - want)))
+        worst = max(worst, err)
+        log("tridiag", f"({n_chains}, {p}): all values agree with the plain version (rtol 1e-4, atol 1e-5), "
+            f"max abs err {err:.3g}")
+
+    # one Q and b shared by every chain: the flagship's conditional at lambda = 100, tau = 1
+    s, P = rw1_p0(N_TIME, 1e-3)
+    y = np.sin(s / 20.0) + 2.0 * np.cos(s / 12.0) + 2.0 + np.random.default_rng(0).normal(0.0, 1.0, N_TIME)
+    bands = 100.0 * P.bands.double().numpy()
+    bands[0] += 1.0
+    Q = np.diag(bands[0]) + np.diag(bands[1, :-1], 1) + np.diag(bands[1, :-1], -1)
+    cov = np.linalg.inv(Q)
+    a, c, b = (torch.as_tensor(np.broadcast_to(v, (N_CHAINS, N_TIME)).copy(), dtype=torch.float32, device=dev)
+               for v in (bands[0], bands[1], y))
+    x = tridiag.sample_canonical_tridiag(SEED, 5, a, c, b).double()
+    sd = np.sqrt(np.diag(cov))
+    z = np.abs(x.mean(0).cpu().numpy() - cov @ y) / (sd / np.sqrt(N_CHAINS))
+    if not np.all(z < 5.0):
+        raise AssertionError(f"tridiag kernel: chain mean of x off Q^-1 b by {z.max():.2f} sd/sqrt(B)")
+    log("tridiag", f"chain mean of x within {z.max():.2f} sd/sqrt(B) of Q^-1 b over {N_CHAINS} chains")
+
+    def kernel():
+        return tridiag.sample_canonical_tridiag(SEED, 5, a, c, b)
+
+    def plain():
+        return tridiag.sample_canonical_tridiag_plain(SEED, 5, a, c, b)
+
+    kernel()
+    torch.cuda.synchronize()
+    ms = cuda_ms(kernel, 25)
+    plain_ms = cuda_ms(plain, 5)
+    bound_ms, bound_by = bound(16 * N_CHAINS * N_TIME, K3_FLOP_PER_ELEM * N_CHAINS * N_TIME)
+    log("tridiag", f"{smi}: at ({N_CHAINS}, {N_TIME}) the wrapper (layout transposes and kernel) takes {ms:.4f} ms "
+        f"(median of 25), plain {plain_ms:.3f} ms (median of 5), bound {1e3 * bound_ms:.2f} us ({bound_by})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def sync_count(dev, n_burn, n_iter):
+    """Synchronising CUDA operations torch reports during a small generic run."""
+    mcmc = build_mcmc(dev, n_chains=256)
+    mcmc.n_burn, mcmc.n_iter = n_burn, n_iter
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            mcmc.run(engine="generic")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def device_times_us(prof):
+    """Device busy time, K3's device time (microseconds) and the five entries with
+    the most device time, from a profiler's key averages."""
+    def self_us(evt):
+        return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+
+    events = [e for e in prof.key_averages() if self_us(e) > 0]
+    top = sorted(events, key=self_us, reverse=True)[:5]
+    return (sum(self_us(e) for e in events), sum(self_us(e) for e in events if "tridiag_canonical" in e.key),
+            [(e.key[:60], e.count, round(self_us(e) / 1e3, 3)) for e in top])
+
+
+def generic_phase(dev, fused_moments, k3_ms, smi):
+    """The generic driver at full width, its K3 launches, its posterior against the
+    fused run's, no per-sweep synchronisation, and its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mcmc = build_mcmc(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = mcmc.run(engine="generic")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_sweeps = N_BURN + N_ITER * mcmc.n_thin
+    if res.engine != "generic":
+        raise AssertionError(f"generic path ran {res.engine}")
+    if launches != {"spectral_smoother": 0, "prng_draws": 0, "tridiag_canonical": n_sweeps}:
+        raise AssertionError(f"generic path: kernel launches {launches}, not {n_sweeps} tridiag_canonical launches")
+    tau_mean = check_store(res, "generic path")
+    from openmcmc_tpu_torch.diagnostics import summary
+
+    scales = {name: summary(res.store[name][:, :, 0, 0]) for name in ("lambda", "tau")}
+    for name, summ in scales.items():
+        if not float(summ["rhat"]) < 1.05:
+            raise AssertionError(f"generic path: split-R-hat of {name} {float(summ['rhat']):.4f} is not below 1.05")
+    moments = posterior_moments(res)
+    ess_b = float(moments["b"][2].mean())
+    del res
+    worst = 0.0
+    for name, (mg, sg, eg) in moments.items():
+        mf, sf, ef = fused_moments[name]
+        z = torch.abs(mg - mf) / torch.sqrt(sg * sg / eg + sf * sf / ef)
+        if not bool(torch.all(z < 5.0)):
+            raise AssertionError(f"generic path: posterior mean of {name} off the fused run's by "
+                                 f"{float(z.max()):.2f} MC sd")
+        worst = max(worst, float(z.max()))
+    log("generic", f"MCMC.run(engine='generic'): kernel launches {launches}, first run {wall:.3f} s; tau posterior "
+        f"mean {tau_mean:.4f}; means of b, lambda, tau within {worst:.2f} MC sd of the fused run's (limit 5)")
+    log("generic", "summary: " + "; ".join(
+        f"{name} mean {float(v['mean']):.4f} sd {float(v['sd']):.4f} q05-q95 [{float(v['q05']):.4f}, "
+        f"{float(v['q95']):.4f}] ESS {float(v['ess']):.1f} R-hat {float(v['rhat']):.5f}" for name, v in scales.items()))
+
+    sync_count(dev, 1, 1)  # first-call work (library loads, generator set-up) out of the count
+    few, more = sync_count(dev, 2, 3), sync_count(dev, 6, 9)
+    if more > few:
+        raise AssertionError(f"generic path synchronises per sweep: {few} syncs in 5 sweeps, {more} in 15")
+    log("generic", f"synchronising operations per run: {few} at 5 sweeps, {more} at 15 (none per sweep)")
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = mcmc.run(engine="generic")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del res
+    e2e = statistics.median(walls)
+
+    # a short steady window under the profiler: 20 burn-in and 50 stored sweeps at full width
+    window = build_mcmc(dev)
+    window.n_burn, window.n_iter = 20, 50
+    window.run(engine="generic")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        window.run(engine="generic")
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy_us, k3_us, top = device_times_us(prof)
+    if busy_us > 0:
+        share = (f"profiled window of 70 sweeps: wall {1e3 * prof_wall:.3f} ms under the profiler, device busy "
+                 f"{busy_us / 1e3:.3f} ms, K3 {k3_us / 1e3:.3f} ms ({k3_us / 70:.2f} us per launch, "
+                 f"{100 * k3_us / busy_us:.1f} % of device time), device idle {100 * (1 - 1e-3 * busy_us / (1e3 * prof_wall)):.1f} %")
+    else:
+        share = "profiler reported no device time: idle share not measured"
+    log("generic", f"{smi}: MCMC.run(engine='generic') {1e3 * e2e:.3f} ms (median of 3); K3 {n_sweeps} x "
+        f"{k3_ms:.4f} ms = {n_sweeps * k3_ms:.3f} ms ({100 * n_sweeps * k3_ms / (1e3 * e2e):.1f} % of the run); "
+        f"mean ESS of b {ess_b:.1f}; ESS/s {ess_b / e2e:.4g} end to end")
+    log("generic", f"{smi}: {share}")
+    log("generic", f"most device time in the window (name, calls, ms): {top}")
+    return launches
 
 
 def main():
@@ -289,14 +536,19 @@ def main():
     build_phase()
     prng_res = prng_phase(dev)
     spectral_small_phase(dev)
-    mcmc, args, kw, hyp, launches, err, ess_b = main_path_phase(dev)
-    ms, plain_ms = timing_phase(mcmc, args, kw, hyp, ess_b, smi)
+    tri_res = tridiag_phase(dev, smi)
+    mcmc, args, kw, hyp, launches, err, ess_b, fused_moments = main_path_phase(dev)
+    k1_res = timing_phase(mcmc, args, kw, hyp, ess_b, smi)
+    del mcmc, args
+    generic_launches = generic_phase(dev, fused_moments, tri_res["ms"], smi)
     kernels = [
         {"name": "spectral_smoother", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/spectral_smoother.cu",
          "replaces": REPLACES["spectral_smoother"], "launches": launches["spectral_smoother"],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
+         "max_abs_err": err, **k1_res},
+        {"name": "tridiag_canonical", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/tridiag_canonical.cu",
+         "replaces": REPLACES["tridiag_canonical"], "launches": generic_launches["tridiag_canonical"], **tri_res},
     ]
-    # prng_draws is not launched by the main path: its device functions run
+    # prng_draws is not launched by either path: its device functions run
     # inlined in spectral_smoother, and this kernel only exposes them for the check
     device_functions = [
         {"name": "prng_draws", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/prng_draws.cu",

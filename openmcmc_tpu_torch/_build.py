@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` into one shared library with
-a plain C interface, loaded through ``ctypes`` on first use. The library lands in
+The sources under ``csrc/`` are compiled by ``nvcc`` -- one process per source, all
+started together -- and linked into one shared library with a plain C interface,
+loaded through ``ctypes`` on first use. The library lands in
 ``_build/`` beside this file (listed in ``.gitignore``) under a name that carries
 a hash of the sources and flags, so an edited source rebuilds and an unchanged one
 loads at once. Nothing here runs at import time: the CPU tests import every module
@@ -29,12 +30,11 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("prng_draws.cu", "spectral_smoother.cu")
+SOURCES = ("prng_draws.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
 HEADERS = ("philox.cuh", "prng.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -74,15 +74,30 @@ def build() -> Build:
     if out.exists():
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(CSRC / src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
     os.replace(tmp, out)
     return Build(out, seconds, log)
 
@@ -97,6 +112,8 @@ def library() -> ctypes.CDLL:
     lib.spectral_smoother_launch.restype = ctypes.c_int
     lib.prng_draws_launch.argtypes = [_P] * 5 + [ctypes.c_int, _P]
     lib.prng_draws_launch.restype = ctypes.c_int
+    lib.tridiag_canonical_launch.argtypes = [_P] * 8
+    lib.tridiag_canonical_launch.restype = ctypes.c_int
     return lib
 
 

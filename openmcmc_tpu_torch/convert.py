@@ -23,8 +23,9 @@ def _leaf(name, value):
     return arr
 
 
-def state_from_reference(state: dict, device="cpu") -> dict:
-    """A JAX-package state dict as the port's coerced state on ``device``.
+def state_from_reference(state: dict, device="cuda") -> dict:
+    """A JAX-package state dict as the port's coerced state on ``device`` (the
+    card unless the caller asks for the CPU).
 
     Arrays and scalars are coerced as ``MCMC`` coerces them; ``Banded``,
     ``Diagonal`` and ``Dense`` (attributes ``bands``, ``diag_``, ``mat``) become

@@ -1,10 +1,12 @@
 """Location-scale distributions (port of ``openmcmc_tpu/distributions/location_scale.py``).
 
 Ported so far: :class:`Normal` in precision form with an Identity mean and an
-Identity or ScaledMatrix precision. Box truncation is recorded (the dispatcher
-routes a truncated prior to the Thomas kernel, K4), but its density waits for
-that kernel (ROADMAP.md queue 1: Thomas smoother); ``n_active`` waits for
-reversible jump (queue 1: reversible jump).
+Identity or ScaledMatrix precision: its density and its (non-truncated) draw.
+Box truncation is recorded (the dispatcher routes a truncated prior to the
+Thomas kernel, K4), but its density and draw wait for that kernel (ROADMAP.md
+queue 1: Thomas smoother); ``n_active`` waits for reversible jump (queue 1:
+reversible jump). Entries may carry leading chain axes: state[name] is (p, n)
+or (..., p, n), and densities keep the batch axes.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from openmcmc_tpu_torch.distributions.base import Distribution
+from openmcmc_tpu_torch.linalg import gmrf
 from openmcmc_tpu_torch.linalg import structured as st
 from openmcmc_tpu_torch.parameters import Identity, Parameter, ScaledMatrix
 
@@ -76,27 +79,44 @@ class Normal(LocationScale):
     def truncated(self) -> bool:
         return self.domain_response_lower is not None or self.domain_response_upper is not None
 
-    def log_p(self, state: dict, by_observation: bool = False):
-        """log N(x; mu, Q^-1) with Q = c P for a ScaledMatrix (c = 1 for Identity):
-        1/2 (d log c + log|P| - d log 2 pi - c (x - mu)' P (x - mu)), per column.
-        ``log|P|`` comes from the structured Cholesky, as in the JAX package."""
+    def _no_truncation(self, what):
         if self.truncated:
             raise NotImplementedError(
-                "the truncated Normal density is not ported yet (ROADMAP.md queue 1: Thomas smoother)"
+                f"the truncated Normal {what} is not ported yet (ROADMAP.md queue 1: Thomas smoother)"
             )
-        if isinstance(self.precision, ScaledMatrix):
-            scalar = torch.as_tensor(state[self.precision.scalar]).reshape(())
-            P = st.as_structured(state[self.precision.matrix])
-        else:
-            scalar = None
-            P = st.as_structured(self.precision.predictor(state))
+
+    def unscaled_log_det(self, state: dict) -> float:
+        """log|P| of a ScaledMatrix precision's matrix: constant data in every
+        ported model, so the driver computes it once per run on the host
+        (:func:`structured.host_log_det`) and hands it to :meth:`log_p`."""
+        return st.host_log_det(st.as_structured(state[self.precision.matrix]))
+
+    def log_p(self, state: dict, by_observation: bool = False, log_det=None):
+        """log N(x; mu, Q^-1) with Q = c P for a ScaledMatrix (c = 1 for Identity):
+        1/2 (d log c + log|P| - d log 2 pi - c (x - mu)' P (x - mu)), per column,
+        summed over columns unless ``by_observation``; the batch axes stay.
+        ``log|P|`` comes from the structured Cholesky, as in the JAX package, or
+        from ``log_det`` when the caller computed it once (:meth:`unscaled_log_det`)."""
+        self._no_truncation("density")
         x = state[self.response]
-        d = x.shape[0]
-        r = x - self.mean.predictor(state).reshape(d, -1)
-        quad = torch.sum(r * st.matvec(P, r), dim=0)
-        log_p = st.chol_log_det(st.cholesky(P)) - d * _LOG_2PI
-        if scalar is None:
-            log_p = 0.5 * (log_p - quad)
-        else:
-            log_p = 0.5 * (d * torch.log(scalar) + log_p - scalar * quad)
-        return log_p if by_observation else torch.sum(log_p)
+        mu = self.mean.predictor(state)
+        if not isinstance(self.precision, ScaledMatrix):
+            Q = st.as_structured(self.precision.predictor(state))
+            return gmrf.mvn_log_pdf(x, mu, Q=Q, by_observation=by_observation)
+        scalar = torch.as_tensor(state[self.precision.scalar])
+        scalar = scalar.reshape(scalar.shape[:-2] + (1,)) if scalar.dim() > 2 else scalar.reshape(1)
+        P = st.as_structured(state[self.precision.matrix])
+        if log_det is None:
+            log_det = st.chol_log_det(st.cholesky(P))[..., None]
+        d = x.shape[-2]
+        r = x - mu
+        quad = torch.sum(r * st.matvec(P, r), dim=-2)
+        log_p = 0.5 * (d * torch.log(scalar) + log_det - d * _LOG_2PI - scalar * quad)
+        return log_p if by_observation else torch.sum(log_p, dim=-1)
+
+    def sample(self, key, state: dict, n: int = 1, batch_shape=()):
+        """A draw from the (non-truncated) Normal, (..., p, n); ``batch_shape``
+        gives the chains their own draws where mean and precision are data."""
+        self._no_truncation("draw")
+        Q = st.as_structured(self.precision.predictor(state))
+        return gmrf.sample_normal(key, self.mean.predictor(state), Q=Q, n=n, batch_shape=batch_shape)

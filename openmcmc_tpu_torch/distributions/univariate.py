@@ -1,6 +1,7 @@
 """Univariate distributions (port of ``openmcmc_tpu/distributions/univariate.py``).
 
-Ported so far: :class:`Gamma`'s ``log_p``. Poisson, Uniform and Categorical come
+Ported so far: :class:`Gamma`'s ``log_p`` and ``sample``, with leading chain
+axes on the entries kept in the result. Poisson, Uniform and Categorical come
 with the mixture and reversible-jump slices (ROADMAP.md queue 1: mixture; reversible jump).
 """
 
@@ -47,5 +48,17 @@ class Gamma(Distribution):
         x = state[self.response]
         a = self.shape.predictor(state)
         b = self.rate.predictor(state)
-        log_p = torch.sum((a - 1.0) * torch.log(x) - b * x + a * torch.log(b) - torch.lgamma(a), dim=0)
-        return log_p if by_observation else torch.sum(log_p)
+        log_p = torch.sum((a - 1.0) * torch.log(x) - b * x + a * torch.log(b) - torch.lgamma(a), dim=-2)
+        return log_p if by_observation else torch.sum(log_p, dim=-1)
+
+    def sample(self, key, state: dict, n: int = 1, batch_shape=()):
+        """Gamma(a, b) draws of shape (..., p, n) from the first column of the
+        shape and rate, the batch broadcast with ``batch_shape``. The variates
+        come from ``torch._standard_gamma`` on the key's generator (the JAX
+        package uses ``jax.random.gamma``)."""
+        a = self.shape.predictor(state)[..., :1]
+        b = self.rate.predictor(state)[..., :1]
+        p = max(a.shape[-2], b.shape[-2])
+        batch = torch.broadcast_shapes(tuple(batch_shape), a.shape[:-2], b.shape[:-2])
+        conc = a.expand(batch + (p, n)).contiguous()
+        return torch._standard_gamma(conc, generator=key.generator) / b

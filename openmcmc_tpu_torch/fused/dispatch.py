@@ -3,8 +3,8 @@
 ``MCMC.run(engine="auto")`` calls :func:`match_fused_engine`. Matching is
 structural (distribution types, parameter forms, sampler order) plus checks on
 the constants the engines assume, exactly as in the JAX package. A failed match
-returns None; unlike the JAX package, the driver then raises instead of falling
-back to the generic driver, which is not ported yet.
+returns None and the driver falls back to the generic driver, as in the JAX
+package.
 
 Ported so far: the smoother matcher, routed to the spectral engine (kernel K1).
 Where the JAX package would pick the Thomas kernel (a tridiagonal P0 with
@@ -187,9 +187,8 @@ def _match_smoother(mcmc) -> Optional[Callable]:
     # convention for log|P0|: the clamped structured Cholesky, which for an
     # intrinsic prior differs from sum log s; its sequential tridiagonal
     # recurrence runs on a host copy rather than as p tiny device launches
-    plam_host = st.to(plam, "cpu")
-    logdet_p0 = float(st.chol_log_det(st.cholesky(plam_host)))
-    plam_dense = st.to_dense(plam_host).numpy()
+    logdet_p0 = st.host_log_det(plam)
+    plam_dense = st.to_dense(st.to(plam, "cpu")).numpy()
     noise_host = ptau.diag_.detach().cpu().numpy()
 
     def run(seed, bit_source=None):

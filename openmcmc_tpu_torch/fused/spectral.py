@@ -240,13 +240,14 @@ def smoother_sweeps(seed, V, s, wy, wmu, lam0, tau0, *, bit_source=None, **kw):
 def run_spectral_smoother(
     seed, y, P0, n_burn, n_iter, n_chains,
     a_lam=10.0, b_lam=1.0, a_tau=1.0, b_tau=1.0, lam0=100.0, tau0=1.0,
-    noise_diag=None, mu0=None, logdet_p0=None, n_thin=1, device="cpu", bit_source=None,
+    noise_diag=None, mu0=None, logdet_p0=None, n_thin=1, device="cuda", bit_source=None,
 ):
     """GMRF smoother with any symmetric PSD prior precision, p <= 8192, one launch.
 
     Arguments as the JAX package's ``run_spectral_smoother``: ``n_burn`` is the
     burn-in SWEEP count, ``n_iter`` the stored draws, each after ``n_thin``
     sweeps. ``lam0``/``tau0`` are scalars or per-chain (chains,) values.
+    ``device`` is the card unless the caller asks for the CPU.
     ``bit_source(sweep, site, shape)`` replaces Philox (CPU only). Returns
     ``b`` (chains, n_iter, p) and ``lam``/``tau``/``log_post`` (chains, n_iter)."""
     prep = prepare(y, P0, noise_diag=noise_diag, mu0=mu0, logdet_p0=logdet_p0)

@@ -1,0 +1,128 @@
+"""Canonical tridiagonal Gaussian draw: kernel K3 and its plain version.
+
+Port of ``openmcmc_tpu/linalg/pallas_tridiag.py`` (``_pallas_batched`` :113,
+kernel ``_kernel`` :43). For each of B chains, with Q tridiagonal -- diagonal
+``a``, super-diagonal ``c`` (``c[:, p-1]`` unused, zero by band convention) -- it
+draws x ~ N(Q^-1 b, Q^-1): the Thomas/Cholesky factor L, the forward solve
+w = L^-1 b, Box-Muller noise z, and one back substitution x = L^-T (w + z).
+
+Bits. The TPU kernel draws from the chip's generator; the port draws from
+Philox4x32-10 with key (seed, 0) and counter (chain, call, site, i // 4), word
+i % 4 for row i: site 0 gives u1 = (i24 + 1) 2^-24, site 1 gives u2 = i24 2^-24.
+``call`` is a host integer, the draw's index within the run, so the stream does
+not depend on the launch geometry.
+
+:func:`sample_canonical_tridiag` launches ``csrc/tridiag_canonical.cu`` on CUDA
+tensors and runs :func:`sample_canonical_tridiag_plain` on CPU tensors. Neither
+clamps a pivot (the TPU kernel does not; the JAX package's XLA factorisation
+clamps at 1e-30, and for a positive-definite Q the two agree). Not ported,
+because it exists for the TPU only: the BLOCK_B lane padding and the CHUNK-row
+identity padding.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from openmcmc_tpu_torch.fused import prng
+
+_TWO_PI = 6.283185307179586
+_MASK32 = 0xFFFFFFFF
+
+
+def sample_canonical_tridiag_plain(seed: int, call: int, a, c, b, bits=None):
+    """Plain PyTorch version of the kernel: x (B, P) for a, c, b (B, P).
+
+    ``bits`` = (bits1, bits2), two (B, P) int64 tensors of uint32 values (site 0
+    feeds u1, site 1 u2), replaces the Philox bits (the CPU tests' injected source)."""
+    n_chains, p = a.shape
+    if bits is None:  # sites 0 and 1 of "sweep" call: the kernel's counter layout
+        bits = prng.sweep_bits(seed, n_chains, call, (p, p), a.device)
+    i1, i2 = ((t.to(torch.int64) & _MASK32) >> 8 for t in bits)
+    u1 = (i1.to(a.dtype) + 1.0) * (1.0 / 16777216.0)
+    u2 = i2.to(a.dtype) * (1.0 / 16777216.0)
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+    ld_prev = torch.ones((n_chains,), dtype=a.dtype, device=a.device)
+    w_prev = torch.zeros_like(ld_prev)
+    c_prev = torch.zeros_like(ld_prev)
+    ld_rows, u_rows = [], []
+    for i in range(p):
+        l_prev = c_prev / ld_prev
+        ld = torch.sqrt(a[:, i] - l_prev * l_prev)
+        w = (b[:, i] - l_prev * w_prev) / ld
+        ld_rows.append(ld)
+        u_rows.append(w + z[:, i])
+        ld_prev, w_prev, c_prev = ld, w, c[:, i]
+    x_next = torch.zeros_like(ld_prev)
+    x_rows = [None] * p
+    for i in reversed(range(p)):
+        ld = ld_rows[i]
+        x_next = (u_rows[i] - (c[:, i] / ld) * x_next) / ld
+        x_rows[i] = x_next
+    return torch.stack(x_rows, dim=1)
+
+
+class TridiagParams(ctypes.Structure):
+    """Mirror of ``struct TridiagParams`` in ``csrc/tridiag_canonical.cu``."""
+
+    _fields_ = [
+        ("seed", ctypes.c_uint32),
+        ("call", ctypes.c_uint32),
+        ("n_chains", ctypes.c_int32),
+        ("p", ctypes.c_int32),
+    ]
+
+
+def _check(a, c, b):
+    if a.dim() != 2 or a.shape[0] < 1 or a.shape[1] < 1:
+        raise ValueError(f"tridiagonal draw: a must be a non-empty (B, P) tensor, got {tuple(a.shape)}")
+    for name, t in (("c", c), ("b", b)):
+        if tuple(t.shape) != tuple(a.shape) or t.device != a.device or t.dtype != a.dtype:
+            raise ValueError(f"tridiagonal draw: {name} must match a's shape {tuple(a.shape)}, device and dtype")
+
+
+def sample_canonical_tridiag_kernel(seed: int, call: int, a, c, b):
+    """Launch ``csrc/tridiag_canonical.cu`` on CUDA float32 tensors (arguments
+    as :func:`sample_canonical_tridiag_plain`). Launches on the current stream
+    and does not synchronise."""
+    _check(a, c, b)
+    if a.device.type != "cuda" or a.dtype != torch.float32:
+        raise ValueError(f"tridiagonal kernel: expected CUDA float32 tensors, got {a.dtype} on {a.device}")
+    if not 0 <= int(call) <= _MASK32:
+        raise ValueError(f"tridiagonal kernel: call counter {call} does not fit 32 bits")
+    from openmcmc_tpu_torch import _build
+
+    n_chains, p = a.shape
+    # (P, B): consecutive chains on consecutive addresses on every row
+    at, ct, bt = (t.t().contiguous() for t in (a, c, b))
+    xt, ld, u = (torch.empty_like(at) for _ in range(3))
+    prm = TridiagParams(seed=int(seed) & _MASK32, call=int(call), n_chains=n_chains, p=p)
+    lib = _build.library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.tridiag_canonical_launch(
+            ctypes.byref(prm), at.data_ptr(), ct.data_ptr(), bt.data_ptr(), xt.data_ptr(), ld.data_ptr(),
+            u.data_ptr(), stream,
+        )
+    sample_canonical_tridiag_kernel.launches += 1
+    _build.check(err, "tridiag_canonical")
+    return xt.t()
+
+
+sample_canonical_tridiag_kernel.launches = 0
+
+
+def sample_canonical_tridiag(seed: int, call: int, a, c, b, bits=None):
+    """x ~ N(Q^-1 b, Q^-1) per row for tridiagonal Q = (a, c); a, c, b are
+    (B, P). The kernel for CUDA tensors, the plain version for CPU tensors; a
+    CUDA call launches the kernel or raises. ``bits`` (CPU only) replaces Philox."""
+    if a.device.type == "cuda":
+        if bits is not None:
+            raise ValueError("injected bits replace Philox on the CPU only")
+        return sample_canonical_tridiag_kernel(seed, call, a, c, b)
+    if a.device.type != "cpu":
+        raise ValueError(f"tridiagonal draw: unsupported device {a.device}")
+    _check(a, c, b)
+    return sample_canonical_tridiag_plain(seed, call, a, c, b, bits=bits)

@@ -2,21 +2,26 @@
 
 The state is split once into per-chain *sampled* entries and constant *data*
 entries, as in the JAX package. Chains are an explicit leading axis of every
-result, and every tensor lives on the driver's ``device``: a CUDA run stays on
-the card.
+per-chain tensor (the JAX package vmaps); data stays unbatched and broadcasts.
+Every tensor lives on the driver's ``device``, ``"cuda"`` unless the caller asks
+for the CPU: a CUDA run stays on the card.
 
-Ported so far: ``engine="auto"``/``"fused"`` for the models the port's fused
-dispatcher matches (the spectral GMRF smoother). Two JAX behaviours are explicit
-errors until their slices are ported:
+Engines: ``engine="generic"`` (the default) runs the samplers sweep by sweep,
+all chains batched, in a Python loop (the JAX package's ``lax.scan``); on the
+flagship smoother each NormalNormal step is one launch of kernel K3.
+``"auto"`` runs the fused engine the dispatcher matches (the spectral smoother,
+kernel K1) and falls back to the generic driver when none matches, as in the
+JAX package; ``"fused"`` requires a match.
 
-- ``engine="generic"`` and ``"auto"`` with no matching engine raise
-  ``NotImplementedError`` (the JAX package falls back to its generic scan/vmap
-  driver; ROADMAP.md queue 1: generic driver);
-- state is float32, as in the JAX package by default; there is no counterpart of
-  ``jax.enable_x64`` (its route to the generic driver waits for that driver).
+Randomness: the generic driver draws from one ``torch.Generator`` on the device,
+seeded from ``seed`` (torch draws: Gamma variates, prior init, non-tridiagonal
+Normal noise), and K3 from Philox keyed by ``seed & 0x7FFFFFFF`` with a call
+counter per (sweep, sampler). The streams differ from the JAX package's
+threefry ones; its draws agree in distribution.
 
-``run(resume=...)``, ``run_chunked`` and progress callbacks wait for the
-operations item (ROADMAP.md queue 1: operations).
+Not ported yet: ``run(resume=...)``, ``run_chunked`` and progress callbacks
+(ROADMAP.md queue 1: operations), and a float64 mode in place of
+``jax.enable_x64`` (state is float32; ROADMAP.md queue 1 item 2, deferred).
 """
 
 from __future__ import annotations
@@ -28,15 +33,15 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from openmcmc_tpu_torch.distributions.location_scale import Normal
+from openmcmc_tpu_torch.linalg import gmrf
 from openmcmc_tpu_torch.linalg import structured as st
 from openmcmc_tpu_torch.model import Model
-from openmcmc_tpu_torch.parameters import Identity
+from openmcmc_tpu_torch.parameters import Identity, ScaledMatrix
 from openmcmc_tpu_torch.samplers.base import Sampler
 
-_GENERIC = "the generic driver is not ported yet (ROADMAP.md queue 1: generic driver)"
 
-
-def _coerce_state(state: dict, device="cpu") -> dict:
+def _coerce_state(state: dict, device="cuda") -> dict:
     """Coerce raw entries to >= 2-D column tensors on ``device``.
 
     Structured matrices pass through (as float32 on ``device``); integer arrays
@@ -97,27 +102,30 @@ class MCMCResult:
     log_post: torch.Tensor
     stats: Dict[str, dict]
     final_state: Dict[str, torch.Tensor]
-    #: which execution path produced this result: a fused engine name
-    engine: str
+    #: which execution path produced this result: "generic" or a fused engine name
+    engine: str = "generic"
 
 
 class MCMC:
     """Drive a set of per-parameter samplers over a model.
 
     Args:
-        state: initial values: data entries (constant across chains) and initial
-            values of the sampled parameters. Values may be tensors, arrays,
-            numbers or structured matrices.
+        state: initial values: data entries (constant across chains) and
+            optionally initial values of the sampled parameters (the generic
+            driver draws missing ones from their priors). Values may be tensors,
+            arrays, numbers or structured matrices.
         samplers: one sampler per inferred parameter, applied in order each sweep.
         model: the full model (log_post and fitted-value storage).
         n_burn / n_iter / n_thin: burn-in, stored iterations, thinning (every
             stored iteration runs n_thin full sweeps).
         n_chains: number of independent chains.
-        seed: the run's seed; the fused engines' Philox key is ``seed & 0x7FFFFFFF``,
-            the value the JAX package derives from ``PRNGKey(seed)``.
+        seed: the run's seed; the kernels' Philox key is ``seed & 0x7FFFFFFF``,
+            the value the JAX package derives from ``PRNGKey(seed)``, and the
+            generic driver's ``torch.Generator`` is seeded with ``seed``.
         store_names: sampled parameters to store (default: all).
         chain_state_names: extra per-chain entries.
-        device: where every tensor lives and every engine runs.
+        device: where every tensor lives and every engine runs; the card
+            unless the caller asks for the CPU.
     """
 
     def __init__(
@@ -132,7 +140,7 @@ class MCMC:
         seed: int = 0,
         store_names: Optional[List[str]] = None,
         chain_state_names: Sequence[str] = (),
-        device="cpu",
+        device="cuda",
     ):
         self.samplers = list(samplers)
         self.model = model
@@ -165,31 +173,105 @@ class MCMC:
     def run(self, resume: Optional[MCMCResult] = None, engine: str = "generic", bit_source=None) -> MCMCResult:
         """Run burn-in and sampling for all chains.
 
-        ``engine``: "auto" runs the fused engine that structurally matches the
-        model and samplers (the whole run in one kernel launch on a CUDA device);
-        "fused" requires a match; "generic" is not ported yet. Unlike the JAX
-        package, "auto" raises instead of falling back when nothing matches.
+        ``engine``: "generic" (default) runs the samplers sweep by sweep; "auto"
+        runs the fused engine that structurally matches the model and samplers
+        (the whole run in one kernel launch on a CUDA device) and falls back to
+        the generic driver otherwise; "fused" requires a match.
 
-        ``bit_source(sweep, site, shape) -> uint32 bits`` replaces the engines'
-        Philox bits; it takes a CPU driver only (the port of the JAX package's
-        ``prng.host_bits``, used to feed both packages the same bits)."""
+        ``bit_source(sweep, site, shape) -> uint32 bits`` replaces the fused
+        engines' Philox bits; it takes a CPU driver and a fused engine only (the
+        port of the JAX package's ``prng.host_bits``, used to feed both packages
+        the same bits)."""
         if engine not in ("generic", "auto", "fused"):
             raise ValueError("engine must be 'generic', 'auto' or 'fused'")
         if resume is not None:
             raise NotImplementedError("run(resume=...) is not ported yet (ROADMAP.md queue 1: operations)")
-        if engine == "generic":
-            raise NotImplementedError(_GENERIC)
-        from openmcmc_tpu_torch.fused.dispatch import match_fused_engine
+        if engine in ("auto", "fused"):
+            from openmcmc_tpu_torch.fused.dispatch import match_fused_engine
 
-        runner = match_fused_engine(self)
-        if runner is None:
+            runner = match_fused_engine(self)
+            if runner is not None:
+                return self._run_fused(runner, bit_source)
             if engine == "fused":
                 raise ValueError("engine='fused': no fused engine matches this model/sampler configuration")
-            raise NotImplementedError(
-                "engine='auto': no ported fused engine matches this model/sampler configuration, and "
-                + _GENERIC
-            )
-        return self._run_fused(runner, bit_source)
+        if bit_source is not None:
+            raise ValueError("bit_source replaces a fused engine's bits; the generic driver draws from its generator")
+        return self._run_generic()
+
+    # -- the generic driver --------------------------------------------------
+
+    def _full_state(self, chain_state: dict) -> dict:
+        full = dict(self.data)
+        full.update(chain_state)
+        return full
+
+    def _init_chain_state(self, generator: torch.Generator) -> dict:
+        """Per-chain state: given initial values broadcast to every chain, and
+        missing sampled parameters drawn from their priors, in sampler order."""
+        n = self.n_chains
+        chain_state = {name: v.expand((n,) + tuple(v.shape)).clone() for name, v in self.initial_chain_state.items()}
+        for sampler in self.samplers:
+            if sampler.param not in chain_state:
+                prior = sampler.model[sampler.param]
+                key = gmrf.Key(generator)
+                chain_state[sampler.param] = prior.sample(key, self._full_state(chain_state), n=1, batch_shape=(n,))
+        return chain_state
+
+    def _log_dets(self) -> Dict[str, float]:
+        """log|P| of every Normal's ScaledMatrix matrix that is data: constant for
+        the run, so taken once on the host instead of once per stored draw."""
+        out = {}
+        for name, dist in self.model.items():
+            if isinstance(dist, Normal) and isinstance(dist.precision, ScaledMatrix) and dist.precision.matrix in self.data:
+                out[name] = dist.unscaled_log_det(self.data)
+        return out
+
+    def _sweep(self, generator, seed: int, sweep: int, chain_state: dict, stats: dict, adapt: bool):
+        """One pass over all samplers. Sampler i of pass ``sweep`` gets Philox call
+        counter sweep * len(samplers) + i: host integers, no read from the card."""
+        full = self._full_state(chain_state)
+        for i, sampler in enumerate(self.samplers):
+            key = gmrf.Key(generator, seed, sweep * len(self.samplers) + i)
+            full, stats[sampler.param] = sampler.step(key, full, stats[sampler.param], adapt=adapt)
+        return {name: full[name] for name in self.chain_state_names}
+
+    def _record(self, chain_state: dict, log_dets: dict) -> dict:
+        full = self._full_state(chain_state)
+        out = {name: chain_state[name] for name in self.store_names if name in chain_state}
+        out["log_post"] = self.model.log_p(full, log_dets)
+        if self.model.response is not None:
+            for response, predictor_name in self.model.response.items():
+                predictor = getattr(self.model[response], predictor_name)
+                out[f"{response}_fitted"] = predictor.predictor(full)
+        return out
+
+    def _run_generic(self) -> MCMCResult:
+        """Burn-in, then n_iter stored iterations, each n_thin passes over the
+        samplers (burn-in iterations too, as in the JAX package). The store is
+        preallocated as (chains, n_iter, ...) and filled in place."""
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        seed = self.seed & 0x7FFFFFFF
+        chain_state = self._init_chain_state(generator)
+        stats = {s.param: {} for s in self.samplers}
+        log_dets = self._log_dets()
+        sweep = 0
+        for _ in range(self.n_burn * self.n_thin):
+            chain_state = self._sweep(generator, seed, sweep, chain_state, stats, adapt=True)
+            sweep += 1
+        store = {}
+        for t in range(self.n_iter):
+            for _ in range(self.n_thin):
+                chain_state = self._sweep(generator, seed, sweep, chain_state, stats, adapt=False)
+                sweep += 1
+            for name, value in self._record(chain_state, log_dets).items():
+                if name not in store:
+                    shape = (self.n_chains, self.n_iter) + tuple(value.shape[1:] if name == "log_post" else value.shape[-2:])
+                    store[name] = torch.empty(shape, dtype=value.dtype, device=self.device)
+                store[name][:, t] = value
+        log_post = store.pop("log_post")
+        return MCMCResult(store=store, log_post=log_post, stats=stats, final_state=chain_state)
+
+    # -- fused engines ---------------------------------------------------------
 
     def _fused_fitted(self, store: dict) -> dict:
         """Fitted values of fused runs, recomputed from the stored draws.

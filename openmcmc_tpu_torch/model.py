@@ -1,7 +1,7 @@
 """Model: distributions keyed by response (port of ``openmcmc_tpu/model.py``).
 
 ``conditional()`` is static analysis over parameter names; ``log_p`` sums the
-component log-densities. Gradients come with the Metropolis family
+component log-densities, per chain when the state carries leading chain axes. Gradients come with the Metropolis family
 (ROADMAP.md queue 1: Metropolis family).
 """
 
@@ -28,9 +28,15 @@ class Model(dict):
         """Sub-model of the distributions that depend on ``param``."""
         return Model([dist for dist in self.values() if param in dist.param_list])
 
-    def log_p(self, state: dict):
-        """Sum of component log-densities."""
+    def log_p(self, state: dict, log_dets: Optional[Dict[str, float]] = None):
+        """Sum of component log-densities; with chain-batched entries, one value
+        per chain. ``log_dets`` maps a Normal's response name to the log|P| of
+        its ScaledMatrix precision, computed once by the caller."""
+        log_dets = log_dets or {}
         total = 0.0
-        for dist in self.values():
-            total = total + dist.log_p(state)
+        for name, dist in self.items():
+            if name in log_dets:
+                total = total + dist.log_p(state, log_det=log_dets[name])
+            else:
+                total = total + dist.log_p(state)
         return total

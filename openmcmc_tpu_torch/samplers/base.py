@@ -1,10 +1,11 @@
 """Sampler protocol (port of ``openmcmc_tpu/samplers/base.py``).
 
-A sampler updates one state entry. The JAX package's samplers are pure
-``step(key, state, stats) -> (state, stats)`` functions composed by the generic
-driver; the port builds them with a ``torch.Generator`` in place of the key when
-the generic driver is ported (ROADMAP.md queue 1: generic driver). Until then samplers
-serve as structure the fused-engine dispatcher matches on.
+A sampler updates one state entry. As in the JAX package, a step is
+``step(key, state, stats) -> (state, stats)``, composed by the generic driver;
+the key is a :class:`openmcmc_tpu_torch.linalg.gmrf.Key` (the run's
+``torch.Generator`` and the Philox key and counter of kernel draws), and the
+state's per-chain entries carry a leading chain axis in place of ``vmap``.
+Samplers are also the structure the fused-engine dispatcher matches on.
 """
 
 from __future__ import annotations
@@ -31,5 +32,5 @@ class Sampler(ABC):
         self.model = model.conditional(param)
 
     @abstractmethod
-    def step(self, generator, state: dict, stats: dict, adapt: bool = False) -> Tuple[dict, dict]:
+    def step(self, key, state: dict, stats: dict, adapt: bool = False) -> Tuple[dict, dict]:
         """Draw a new value for ``self.param``; return the updated state and stats."""

@@ -76,7 +76,8 @@ def test_flagship_slice_matches_jax(host_stats):
     state = reference_state()
     response = {"y": "mean"}
     want = build("openmcmc_tpu", state, 2, None, response).run(engine="auto")
-    mcmc = build("openmcmc_tpu_torch", state_from_reference(state), 2, None, response, device="cpu")
+    mcmc = build("openmcmc_tpu_torch", state_from_reference(state, device="cpu"), 2, None, response,
+                 device="cpu")
     got = mcmc.run(engine="auto", bit_source=jax_kernel_bits(SEED, P))
 
     assert got.engine == want.engine == "fused_smoother_spectral"
@@ -124,16 +125,58 @@ def test_ess_per_param_matches_jax():
     np.testing.assert_allclose(float(effective_sample_size(torch.from_numpy(x[:, :, 0]))), want[0], rtol=1e-3)
 
 
-def test_unported_routes_raise():
-    from openmcmc_tpu_torch.convert import state_from_reference
+def test_rhat_and_summary_match_jax():
+    """split_rhat, rhat_per_param and summary against the JAX package's on AR(1)
+    draws with shifted chains (so R-hat is well above 1), float32; rtol 1e-5
+    (ESS: rtol 1e-3, as in test_ess_per_param_matches_jax)."""
+    from openmcmc_tpu import diagnostics as jdiag
+    from openmcmc_tpu_torch import diagnostics as tdiag
 
-    mcmc = build("openmcmc_tpu_torch", state_from_reference(reference_state()), 1, None, None)
-    with pytest.raises(NotImplementedError, match="generic driver"):
-        mcmc.run()
+    rng = np.random.default_rng(9)
+    m, n = 6, 201
+    x = np.zeros((m, n, 2, 3))
+    x[:, 0] = rng.normal(size=(m, 2, 3))
+    for t in range(1, n):
+        x[:, t] = 0.6 * x[:, t - 1] + rng.normal(size=(m, 2, 3))
+    x = (x + 0.3 * np.arange(m)[:, None, None, None]).astype(np.float32)
+    tx = torch.from_numpy(x)
+    np.testing.assert_allclose(float(tdiag.split_rhat(tx[:, :, 0, 0])), float(jdiag.split_rhat(jnp.asarray(x[:, :, 0, 0]))),
+                               rtol=1e-5)
+    np.testing.assert_allclose(tdiag.rhat_per_param(tx).numpy(), np.asarray(jdiag.rhat_per_param(jnp.asarray(x))),
+                               rtol=1e-5)
+    got, want = tdiag.summary(tx), jdiag.summary(jnp.asarray(x))
+    assert sorted(got) == sorted(want)
+    for name in got:
+        assert tuple(got[name].shape) == tuple(want[name].shape) == (2, 3), name
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]), rtol=1e-3 if name == "ess" else 1e-5,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_unported_routes_raise():
+    """run() runs the generic driver; "auto" without a matching engine falls back
+    to it, as in the JAX package; "fused" without a match, resume and the routes
+    to the Thomas kernel K4 (a truncated latent prior) still raise."""
+    from openmcmc_tpu_torch.convert import state_from_reference
+    from openmcmc_tpu_torch.distributions import Normal
+
+    mcmc = build("openmcmc_tpu_torch", state_from_reference(reference_state(), device="cpu"), 1, None, None,
+                 device="cpu")
+    assert mcmc.run().engine == "generic"
     with pytest.raises(NotImplementedError, match="resume"):
         mcmc.run(engine="auto", resume=object())
-    mcmc.data["a_lam"] = np.ones(3)  # no longer a scalar: nothing matches
-    with pytest.raises(NotImplementedError, match="no ported fused engine"):
-        mcmc.run(engine="auto")
+    with pytest.raises(ValueError, match="bit_source"):
+        mcmc.run(bit_source=lambda *a: None)
+    from openmcmc_tpu_torch.linalg import structured as st
+
+    # a banded noise precision (here still diagonal in value) is no smoother the
+    # dispatcher knows: nothing matches
+    p_tau = mcmc.data["P_tau"]
+    mcmc.data["P_tau"] = st.Banded(torch.stack([p_tau.diag_, torch.zeros_like(p_tau.diag_)]))
+    res = mcmc.run(engine="auto")
+    assert res.engine == "generic" and tuple(res.store["b"].shape) == (8, 5, P, 1)
     with pytest.raises(ValueError, match="no fused engine matches"):
         mcmc.run(engine="fused")
+    mcmc.data["P_tau"] = p_tau
+    mcmc.model["b"] = Normal("b", mean="mu", precision=mcmc.model["b"].precision, domain_response_lower=0.0)
+    with pytest.raises(NotImplementedError, match="K4"):
+        mcmc.run(engine="auto")

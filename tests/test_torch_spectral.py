@@ -106,7 +106,8 @@ def test_same_bits_engine_parity(host_stats, problem, n_chains, n_thin):
     seed = 3
     kw = dict(problem, n_burn=3, n_iter=5, n_chains=n_chains, n_thin=n_thin, **HYPERS)
     want = jspectral.run_spectral_smoother(seed, **kw)
-    got = tspectral.run_spectral_smoother(seed, **kw, bit_source=jax_kernel_bits(seed, problem["y"].shape[0]))
+    got = tspectral.run_spectral_smoother(seed, **kw, device="cpu",
+                                        bit_source=jax_kernel_bits(seed, problem["y"].shape[0]))
     assert got["b"].shape == (n_chains, 5, problem["y"].shape[0])
     assert_same_draws(got, want, f"n_thin={n_thin}")
 
@@ -120,7 +121,7 @@ def test_kernel_log_post_is_model_log_p():
 
     pb = lattice_problem()
     p = pb["y"].shape[0]
-    out = tspectral.run_spectral_smoother(11, n_burn=2, n_iter=4, n_chains=8, **pb, **HYPERS)
+    out = tspectral.run_spectral_smoother(11, n_burn=2, n_iter=4, n_chains=8, **pb, **HYPERS, device="cpu")
     mdl = Model([
         Normal("y", mean="b", precision=ScaledMatrix("D", "tau")),
         Normal("b", mean="mu0", precision=ScaledMatrix("P0", "lam")),
@@ -154,6 +155,7 @@ def test_philox_engine_matches_generic_driver_moments():
     s, y = _smoother_problem()
     P0 = np.asarray(st.to_dense(gmrf.precision_irregular(jnp.asarray(s, jnp.float32))))
     out = tspectral.run_spectral_smoother(4, y, P0, n_burn=200, n_iter=200, n_chains=1024,
-                                          a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0, lam0=1.0, tau0=1.0)
+                                          a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0, lam0=1.0, tau0=1.0,
+                                          device="cpu")
     gen = _generic_smoother(s, y)
     _check_smoother_parity(out["b"].numpy(), out["lam"].numpy(), out["tau"].numpy(), gen)
