@@ -13,6 +13,16 @@ and 500 stored sweeps) through both of the port's paths:
   canonical tridiagonal kernel (K3) per sweep, its posterior means held against
   the fused run's within the Monte Carlo bound.
 
+Then the two paths ``engine="auto"`` takes to the Thomas-scan kernel (K4), each
+through ``MCMC.run(engine="auto")`` with one K4 launch, held against K4's plain
+version and, in posterior means, against the generic driver:
+
+- ``truncated``: bench_all.py's box-truncated smoother (p = 100 RW1 prior with
+  b in [0, 3.5], 4096 chains, 100 burn-in and 250 stored sweeps), engine
+  ``fused_gmrf_smoother_truncated``;
+- ``thomas_long``: the flagship model at p = 4096 (0.6 s spacing, 4096 chains,
+  200 burn-in and 100 stored sweeps), engine ``fused_gmrf_smoother``.
+
 Each path runs with every launch count set to 0 just before it and read just
 after. The kernels are timed against their plain versions with CUDA events,
 beside the least time the card could take for the same work (``bound_ms``).
@@ -31,6 +41,7 @@ import statistics
 import subprocess
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -41,7 +52,14 @@ REPLACES = {
     "spectral_smoother": "openmcmc_tpu/fused/spectral.py:319",
     "prng_draws": "openmcmc_tpu/fused/prng.py:178",
     "tridiag_canonical": "openmcmc_tpu/linalg/pallas_tridiag.py:43",
+    "gmrf_smoother": "openmcmc_tpu/fused/gmrf_smoother.py:58",
+    "truncnorm_draws": "openmcmc_tpu/fused/prng.py:339",
 }
+# the K4 cells: bench_all.py's truncated_smoother (bench_all.py:468, :762) and the
+# flagship model past the spectral engine's tridiagonal limit (p > 1024)
+T_CHAINS, T_BURN, T_ITER, T_SEED, T_BOX = 4096, 100, 250, 0, (0.0, 3.5)
+L_P, L_CHAINS, L_BURN, L_ITER = 4096, 4096, 200, 100
+L_GEN_BURN, L_GEN_ITER = 50, 100  # thomas_long's generic (K3) run: exact redraws need little burn-in
 # H100 SXM data sheet: HBM bandwidth and the float32 rate outside the tensor cores
 # (TF32 is excluded: the port keeps full float32, ROADMAP.md's invariant)
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
@@ -52,6 +70,11 @@ K1_FLOP_PER_SWEEP = 100  # the (lam, tau) Gamma pair, one Marsaglia-Tsang round 
 K1_FLOP_PER_STORE = 30   # the analytic log posterior; the store adds 2 p^2 for b = V w
 K2_FLOP_PER_ROW = 222    # csrc/prng_draws.cu: 4 uniforms, 4 inverse-CDF normals, a Gamma pair
 K3_FLOP_PER_ELEM = 21    # csrc/tridiag_canonical.cu: Box-Muller 9, forward step 8, back step 4
+K4_FLOP_PER_THOMAS_ROW = 63  # csrc/gmrf_smoother.cu: inverse-CDF normal 30, forward step 16, back step 5, quadratic forms 12
+K4_FLOP_PER_TRUNC_ROW = 105  # truncated draw 92 (its erf pair 36, inverse erf 24), quadratic forms 13
+K4_FLOP_PER_SWEEP = 100      # the lam and the tau Gamma draw, one Marsaglia-Tsang round each, and the rates
+K4_FLOP_PER_STORE = 30       # the analytic log posterior
+K2T_FLOP_PER_ROW = 380       # csrc/prng_draws.cu truncnorm_draws: 4 erf_poly (17 each) and 4 truncated draws (78 each)
 
 
 def bound(n_bytes, n_flop):
@@ -61,22 +84,27 @@ def bound(n_bytes, n_flop):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+START = time.perf_counter()
+
+
 def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of a phase, with the seconds since the script started."""
+    print(f"[{phase} +{time.perf_counter() - START:.1f} s] {msg}", flush=True)
+
+
+def cuda_call_ms(fn):
+    """fn's result and the milliseconds of the call, timed with CUDA events."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def cuda_ms(fn, reps):
     """Median milliseconds of ``reps`` calls of fn, each timed with CUDA events."""
-    times = []
-    for _ in range(reps):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-        del out
-    return statistics.median(times)
+    return statistics.median(cuda_call_ms(fn)[1] for _ in range(reps))
 
 
 def device_phase():
@@ -205,49 +233,62 @@ def spectral_small_phase(dev):
             f"(rtol 1e-4), max abs err {err:.3g}")
 
 
-def build_mcmc(dev, n_chains=None):
-    """bench.py's model in the port: RW1 prior over 60 s with a 1e-3 ridge."""
+def smoother_model(dev, s, y, p, n_chains, n_burn, n_iter, seed, box=None):
+    """The flagship smoother in the port, RW1 prior over ``s`` with a 1e-3 ridge;
+    ``box`` truncates b's prior and starts b at y clipped just inside it."""
     from openmcmc_tpu_torch import MCMC, Model
     from openmcmc_tpu_torch.distributions import Gamma, Normal
-    from openmcmc_tpu_torch.linalg import structured as st
+    from openmcmc_tpu_torch.linalg import gmrf, structured as st
     from openmcmc_tpu_torch.parameters import ScaledMatrix
     from openmcmc_tpu_torch.samplers import NormalGamma, NormalNormal
 
-    rng = np.random.default_rng(0)
-    s, P_lambda = rw1_p0(N_TIME, 0.001)
-    y = np.sin(s / 20.0) + 2.0 * np.cos(s / 12.0) + 2.0 + rng.normal(0.0, 1.0, N_TIME)
+    bands = gmrf.precision_irregular(s).bands.clone()
+    bands[0, 0] += 1e-3
+    trunc = {} if box is None else dict(domain_response_lower=np.full(p, box[0]),
+                                        domain_response_upper=np.full(p, box[1]))
     mdl = Model([
         Normal("y", mean="b", precision=ScaledMatrix("P_tau", "tau")),
-        Normal("b", mean="mu", precision=ScaledMatrix("P_lambda", "lambda")),
+        Normal("b", mean="mu", precision=ScaledMatrix("P_lambda", "lambda"), **trunc),
         Gamma("lambda", shape="a_lam", rate="b_lam"),
         Gamma("tau", shape="a_tau", rate="b_tau"),
     ])
+    b0 = y.copy() if box is None else np.clip(y, box[0] + 1e-3, box[1] - 1e-3)
+    state = {"y": y, "b": b0, "mu": np.zeros(p), "lambda": 100.0, "P_lambda": st.Banded(bands), "a_lam": 10.0,
+             "b_lam": 1.0, "tau": 1.0, "P_tau": st.Diagonal(torch.ones(p)), "a_tau": 1.0, "b_tau": 1.0}
     samplers = [NormalNormal("b", mdl), NormalGamma("lambda", mdl), NormalGamma("tau", mdl)]
-    state = {
-        "y": y, "b": y.copy(), "mu": np.zeros(N_TIME), "lambda": 100.0, "P_lambda": P_lambda,
-        "a_lam": 10.0, "b_lam": 1.0, "tau": 1.0, "P_tau": st.Diagonal(torch.ones(N_TIME)),
-        "a_tau": 1.0, "b_tau": 1.0,
-    }
-    return MCMC(state, samplers, mdl, n_burn=N_BURN, n_iter=N_ITER, n_chains=n_chains or N_CHAINS, seed=SEED,
+    return MCMC(state, samplers, mdl, n_burn=n_burn, n_iter=n_iter, n_chains=n_chains, seed=seed,
                 store_names=["b", "tau", "lambda"], device=dev)
+
+
+def build_mcmc(dev, n_chains=None):
+    """bench.py's model in the port: RW1 prior over 60 s with a 1e-3 ridge."""
+    s = np.linspace(0.0, 60.0, N_TIME)
+    y = np.sin(s / 20.0) + 2.0 * np.cos(s / 12.0) + 2.0 + np.random.default_rng(0).normal(0.0, 1.0, N_TIME)
+    return smoother_model(dev, s, y, N_TIME, n_chains or N_CHAINS, N_BURN, N_ITER, SEED)
+
+
+def _wrappers():
+    from openmcmc_tpu_torch.fused import gmrf_smoother, prng, spectral
+    from openmcmc_tpu_torch.linalg import tridiag
+
+    return {"spectral_smoother": spectral.smoother_sweeps_kernel, "prng_draws": prng.draws,
+            "tridiag_canonical": tridiag.sample_canonical_tridiag_kernel,
+            "gmrf_smoother": gmrf_smoother.gmrf_smoother_kernel, "truncnorm_draws": prng.truncnorm_draws}
 
 
 def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
-    from openmcmc_tpu_torch.fused import prng, spectral
-    from openmcmc_tpu_torch.linalg import tridiag
-
-    spectral.smoother_sweeps_kernel.launches = 0
-    prng.draws.launches = 0
-    tridiag.sample_canonical_tridiag_kernel.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launches():
-    from openmcmc_tpu_torch.fused import prng, spectral
-    from openmcmc_tpu_torch.linalg import tridiag
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
-    return {"spectral_smoother": spectral.smoother_sweeps_kernel.launches, "prng_draws": prng.draws.launches,
-            "tridiag_canonical": tridiag.sample_canonical_tridiag_kernel.launches}
+
+def only(name, count):
+    """The launch counts of a path that launches kernel ``name`` ``count`` times and no other."""
+    return {k: (count if k == name else 0) for k in _wrappers()}
 
 
 def check_store(res, path):
@@ -268,7 +309,7 @@ def check_store(res, path):
     return tau_mean
 
 
-def posterior_moments(res):
+def posterior_moments(res, chunk_size=8):
     """Per coordinate of b, lambda and tau: posterior mean, sd and multi-chain ESS."""
     from openmcmc_tpu_torch.diagnostics import ess_per_param
 
@@ -277,15 +318,43 @@ def posterior_moments(res):
         d = res.store[name][..., 0]  # (chains, n_iter, dims)
         mean = torch.mean(d, dim=(0, 1), dtype=torch.float64)
         sd = torch.sqrt(torch.clamp(torch.mean(d * d, dim=(0, 1), dtype=torch.float64) - mean * mean, min=0.0))
-        out[name] = (mean, sd, ess_per_param(d, chunk_size=8).double())
+        out[name] = (mean, sd, ess_per_param(d, chunk_size=chunk_size).double())
     return out
 
 
-def main_path_phase(dev):
+def moments_z(moments, reference):
+    """The largest |mean difference| over its Monte Carlo sd, over b, lambda and tau."""
+    worst = 0.0
+    for name, (m1, s1, e1) in moments.items():
+        m2, s2, e2 = reference[name]
+        z = torch.abs(m1 - m2) / torch.sqrt(s1 * s1 / e1 + s2 * s2 / e2)
+        worst = max(worst, float(z.max()))
+    return worst
+
+
+def main_plain(dev):
+    """The main path's model, and the plain version's run at its width fed what
+    the dispatcher should feed the kernel. It launches no kernel of the port, so
+    it runs while nvcc builds them."""
     from openmcmc_tpu_torch.fused import spectral
     from openmcmc_tpu_torch.linalg import structured as st
 
     mcmc = build_mcmc(dev)
+    plam = mcmc.data["P_lambda"]
+    args, kw = kernel_inputs(
+        dev, mcmc.data["y"].cpu().numpy()[:, 0], st.to_dense(plam).cpu().numpy(), N_CHAINS,
+        noise=mcmc.data["P_tau"].diag_.cpu().numpy(), mu0=mcmc.data["mu"].cpu().numpy()[:, 0],
+        logdet_p0=float(st.chol_log_det(st.cholesky(plam))),
+    )
+    hyp = dict(a_lam=10.0, b_lam=1.0, a_tau=1.0, b_tau=1.0, n_burn=N_BURN, n_keep=N_ITER, n_thin=1)
+    want, plain_ms = cuda_call_ms(lambda: spectral.smoother_sweeps_plain(SEED, *args, **kw, **hyp))
+    log("main", f"plain version of the main path's run: {plain_ms:.1f} ms (beside the build)")
+    return mcmc, args, kw, hyp, want, plain_ms
+
+
+def main_path_phase(mcmc, want):
+    """MCMC.run(engine="auto") with the counts at 0 around it, one K1 launch, its
+    store against the plain version's run, its posterior moments."""
     reset_launches()
     t0 = time.perf_counter()
     res = mcmc.run(engine="auto")
@@ -294,26 +363,15 @@ def main_path_phase(dev):
     launches = read_launches()
     if res.engine != "fused_smoother_spectral":
         raise AssertionError(f"main path dispatched to {res.engine}")
-    if launches != {"spectral_smoother": 1, "prng_draws": 0, "tridiag_canonical": 0}:
+    if launches != only("spectral_smoother", 1):
         raise AssertionError(f"fused path: kernel launches {launches}, not one spectral_smoother launch")
     tau_mean = check_store(res, "fused path")
     b = res.store["b"]
     log("main", f"MCMC.run(engine='auto'): engine {res.engine}, kernel launches {launches}, "
         f"b {tuple(b.shape)}, first run {wall:.3f} s (build already done)")
-
-    # the plain version at the same width, fed what the dispatcher should feed the kernel
-    plam = mcmc.data["P_lambda"]
-    args, kw = kernel_inputs(
-        dev, mcmc.data["y"].cpu().numpy()[:, 0], st.to_dense(plam).cpu().numpy(), N_CHAINS,
-        noise=mcmc.data["P_tau"].diag_.cpu().numpy(), mu0=mcmc.data["mu"].cpu().numpy()[:, 0],
-        logdet_p0=float(st.chol_log_det(st.cholesky(plam))),
-    )
-    hyp = dict(a_lam=10.0, b_lam=1.0, a_tau=1.0, b_tau=1.0, n_burn=N_BURN, n_keep=N_ITER, n_thin=1)
-    want = spectral.smoother_sweeps_plain(SEED, *args, **kw, **hyp)
     got = {"b": b[..., 0], "lam": res.store["lambda"][:, :, 0, 0], "tau": res.store["tau"][:, :, 0, 0],
            "log_post": res.log_post}
     agree, err = compare(got, want)
-    del want
     if agree < 0.999 * N_CHAINS:
         raise AssertionError(f"only {agree} of {N_CHAINS} chains agree with the plain version")
     log("main", f"{agree} of {N_CHAINS} chains agree with the plain version (rtol 1e-4); max abs err {err:.3g}")
@@ -322,22 +380,18 @@ def main_path_phase(dev):
     ess_b = float(moments["b"][2].mean())
     log("main", f"tau posterior mean {tau_mean:.4f}; mean ESS of b {ess_b:.1f} over {N_CHAINS * N_ITER} draws")
     del res, got, b
-    return mcmc, args, kw, hyp, launches, err, ess_b, moments
+    return launches, err, ess_b, moments
 
 
-def timing_phase(mcmc, args, kw, hyp, ess_b, smi):
+def timing_phase(mcmc, args, kw, hyp, ess_b, plain_ms, smi):
+    """K1's time, the bound and MCMC.run end to end; ``plain_ms`` is the main
+    path's check call of the plain version."""
     from openmcmc_tpu_torch.fused import spectral
 
     def kernel():
         return spectral.smoother_sweeps_kernel(SEED, *args, **kw, **hyp)
 
-    def plain():
-        return spectral.smoother_sweeps_plain(SEED, *args, **kw, **hyp)
-
-    kernel()  # warm-up
-    torch.cuda.synchronize()
     ms = cuda_ms(kernel, 5)
-    plain_ms = cuda_ms(plain, 3)
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -352,7 +406,7 @@ def timing_phase(mcmc, args, kw, hyp, ess_b, smi):
     n_flop = N_CHAINS * (n_sweeps * (K1_FLOP_PER_COORD * p + K1_FLOP_PER_SWEEP)
                          + n_keep * (2 * p * p + K1_FLOP_PER_STORE))
     bound_ms, bound_by = bound(n_bytes, n_flop)
-    log("time", f"{smi}: spectral kernel {ms:.3f} ms (median of 5), plain {plain_ms:.1f} ms (median of 3), "
+    log("time", f"{smi}: spectral kernel {ms:.3f} ms (median of 5), plain {plain_ms:.1f} ms (the check's call), "
         f"bound {bound_ms:.3f} ms ({bound_by}: {n_flop:.3g} FLOP, {n_bytes:.3g} B), "
         f"MCMC.run end to end {1e3 * e2e:.3f} ms (median of 5)")
     log("time", f"{smi}: ESS/s {ess_b / (ms / 1e3):.4g} on kernel time, {ess_b / e2e:.4g} end to end")
@@ -439,7 +493,8 @@ def sync_count(dev, n_burn, n_iter):
 
 def device_times_us(prof):
     """Device busy time, K3's device time (microseconds) and the five entries with
-    the most device time, from a profiler's key averages."""
+    the most device time, from the key averages of a device-only trace (kernels,
+    copies and fills, so no time is counted twice)."""
     def self_us(evt):
         return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
 
@@ -450,21 +505,27 @@ def device_times_us(prof):
 
 
 def generic_phase(dev, fused_moments, k3_ms, smi):
-    """The generic driver at full width, its K3 launches, its posterior against the
-    fused run's, no per-sweep synchronisation, and its time."""
+    """No per-sweep synchronisation in the generic driver; then the driver at full
+    width, its K3 launches, its posterior against the fused run's, and its time."""
     from torch.profiler import ProfilerActivity, profile
+
+    sync_count(dev, 1, 1)  # first-call work (library loads, generator set-up) out of the count and the timing
+    few, more = sync_count(dev, 2, 3), sync_count(dev, 6, 9)
+    if more > few:
+        raise AssertionError(f"generic path synchronises per sweep: {few} syncs in 5 sweeps, {more} in 15")
+    log("generic", f"synchronising operations per run: {few} at 5 sweeps, {more} at 15 (none per sweep)")
 
     mcmc = build_mcmc(dev)
     reset_launches()
     t0 = time.perf_counter()
     res = mcmc.run(engine="generic")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    e2e = time.perf_counter() - t0
     launches = read_launches()
     n_sweeps = N_BURN + N_ITER * mcmc.n_thin
     if res.engine != "generic":
         raise AssertionError(f"generic path ran {res.engine}")
-    if launches != {"spectral_smoother": 0, "prng_draws": 0, "tridiag_canonical": n_sweeps}:
+    if launches != only("tridiag_canonical", n_sweeps):
         raise AssertionError(f"generic path: kernel launches {launches}, not {n_sweeps} tridiag_canonical launches")
     tau_mean = check_store(res, "generic path")
     from openmcmc_tpu_torch.diagnostics import summary
@@ -476,85 +537,346 @@ def generic_phase(dev, fused_moments, k3_ms, smi):
     moments = posterior_moments(res)
     ess_b = float(moments["b"][2].mean())
     del res
-    worst = 0.0
-    for name, (mg, sg, eg) in moments.items():
-        mf, sf, ef = fused_moments[name]
-        z = torch.abs(mg - mf) / torch.sqrt(sg * sg / eg + sf * sf / ef)
-        if not bool(torch.all(z < 5.0)):
-            raise AssertionError(f"generic path: posterior mean of {name} off the fused run's by "
-                                 f"{float(z.max()):.2f} MC sd")
-        worst = max(worst, float(z.max()))
-    log("generic", f"MCMC.run(engine='generic'): kernel launches {launches}, first run {wall:.3f} s; tau posterior "
-        f"mean {tau_mean:.4f}; means of b, lambda, tau within {worst:.2f} MC sd of the fused run's (limit 5)")
+    worst = moments_z(moments, fused_moments)
+    if not worst < 5.0:
+        raise AssertionError(f"generic path: a posterior mean of b, lambda or tau is off the fused run's by "
+                             f"{worst:.2f} MC sd")
+    log("generic", f"MCMC.run(engine='generic'): kernel launches {launches}; tau posterior mean {tau_mean:.4f}; "
+        f"means of b, lambda, tau within {worst:.2f} MC sd of the fused run's (limit 5)")
     log("generic", "summary: " + "; ".join(
         f"{name} mean {float(v['mean']):.4f} sd {float(v['sd']):.4f} q05-q95 [{float(v['q05']):.4f}, "
         f"{float(v['q95']):.4f}] ESS {float(v['ess']):.1f} R-hat {float(v['rhat']):.5f}" for name, v in scales.items()))
+    log("generic", f"{smi}: MCMC.run(engine='generic') {1e3 * e2e:.3f} ms (warm: after the synchronisation "
+        f"runs); K3 {n_sweeps} x {k3_ms:.4f} ms = {n_sweeps * k3_ms:.3f} ms "
+        f"({100 * n_sweeps * k3_ms / (1e3 * e2e):.1f} % of the run); mean ESS of b {ess_b:.1f}; "
+        f"ESS/s {ess_b / e2e:.4g} end to end")
 
-    sync_count(dev, 1, 1)  # first-call work (library loads, generator set-up) out of the count
-    few, more = sync_count(dev, 2, 3), sync_count(dev, 6, 9)
-    if more > few:
-        raise AssertionError(f"generic path synchronises per sweep: {few} syncs in 5 sweeps, {more} in 15")
-    log("generic", f"synchronising operations per run: {few} at 5 sweeps, {more} at 15 (none per sweep)")
-
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = mcmc.run(engine="generic")
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        del res
-    e2e = statistics.median(walls)
-
-    # a short steady window under the profiler: 20 burn-in and 50 stored sweeps at full width
-    window = build_mcmc(dev)
-    window.n_burn, window.n_iter = 20, 50
-    window.run(engine="generic")
+    # a short steady window under a device-only trace: 5 burn-in and 15 stored sweeps at full width
+    mcmc.n_burn, mcmc.n_iter = 5, 15
+    n_window = mcmc.n_burn + mcmc.n_iter
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        window.run(engine="generic")
+        mcmc.run(engine="generic")
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     busy_us, k3_us, top = device_times_us(prof)
     if busy_us > 0:
-        share = (f"profiled window of 70 sweeps: wall {1e3 * prof_wall:.3f} ms under the profiler, device busy "
-                 f"{busy_us / 1e3:.3f} ms, K3 {k3_us / 1e3:.3f} ms ({k3_us / 70:.2f} us per launch, "
+        share = (f"profiled window of {n_window} sweeps: wall {1e3 * prof_wall:.3f} ms under the profiler, device "
+                 f"busy {busy_us / 1e3:.3f} ms, K3 {k3_us / 1e3:.3f} ms ({k3_us / n_window:.2f} us per launch, "
                  f"{100 * k3_us / busy_us:.1f} % of device time), device idle {100 * (1 - 1e-3 * busy_us / (1e3 * prof_wall)):.1f} %")
     else:
         share = "profiler reported no device time: idle share not measured"
-    log("generic", f"{smi}: MCMC.run(engine='generic') {1e3 * e2e:.3f} ms (median of 3); K3 {n_sweeps} x "
-        f"{k3_ms:.4f} ms = {n_sweeps * k3_ms:.3f} ms ({100 * n_sweeps * k3_ms / (1e3 * e2e):.1f} % of the run); "
-        f"mean ESS of b {ess_b:.1f}; ESS/s {ess_b / e2e:.4g} end to end")
     log("generic", f"{smi}: {share}")
     log("generic", f"most device time in the window (name, calls, ms): {top}")
     return launches
 
 
+def truncnorm_phase(dev):
+    """truncnorm_draws (erf_poly and truncnorm_draw, the device functions K4's
+    truncated sweep inlines) against its plain version, over the truncated
+    cell's draw counters: the box [0, 3.5], every seventh row open (+-1e30)."""
+    from openmcmc_tpu_torch.fused import prng
+
+    groups = (N_TIME + 3) // 4
+    chain = torch.arange(T_CHAINS, dtype=torch.int64).repeat_interleave(groups)
+    group = torch.arange(groups, dtype=torch.int64).repeat(T_CHAINS)
+    ctr = torch.stack([chain, torch.full_like(chain, 3), torch.zeros_like(chain), group], 1).to(torch.int32)
+    n = ctr.shape[0]
+    gen = torch.Generator().manual_seed(2)
+    x = 3.0 * torch.randn((n, 4), generator=gen)
+    mu = 2.0 + 1.5 * torch.randn((n, 4), generator=gen)
+    scale = 0.05 + 0.3 * torch.rand((n, 4), generator=gen)
+    lo, hi = torch.full((n, 4), T_BOX[0]), torch.full((n, 4), T_BOX[1])
+    lo[::7], hi[::7], x[::7] = -1e30, 1e30, 1e30
+    args = [t.to(dev).contiguous() for t in (ctr, x, mu, scale, lo, hi)]
+    got = prng.truncnorm_draws(SEED, *args)
+    want = prng.truncnorm_draws_plain(SEED, *args)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, w in (("erf_poly", got[0], want[0]), ("truncnorm_draw", got[1], want[1])):
+        rel = float(torch.max(torch.abs(g - w) / torch.clamp(torch.abs(w), min=1.0)))
+        if not bool(torch.all(torch.isfinite(g))) or rel > 1e-6:
+            raise AssertionError(f"truncnorm_draws: {name} differs from the plain version by {rel:.3g} (relative)")
+        worst = max(worst, float(torch.max(torch.abs(g - w))))
+    if not bool(torch.all((got[1] >= args[4]) & (got[1] <= args[5]))):
+        raise AssertionError("truncnorm_draws: a draw left its box")
+    ms = cuda_ms(lambda: prng.truncnorm_draws(SEED, *args), 5)
+    plain_ms = cuda_ms(lambda: prng.truncnorm_draws_plain(SEED, *args), 3)
+    bound_ms, bound_by = bound(n * 128, n * K2T_FLOP_PER_ROW)
+    log("truncnorm", f"{n} rows: erf_poly and truncated draws within 1e-6 rel of the plain version, every draw in "
+        f"its box; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def k4_args(dev, y, bands, noise, mu0, n_chains, box=None, b_init=None):
+    """K4's inputs as run_fused_smoother prepares them, with the cells' priors
+    (Gamma(10, 1) on lambda, Gamma(1, 1) on tau, lambda0 = 100, tau0 = 1)."""
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs
+
+    bounds = {} if box is None else dict(lower=box[0], upper=box[1], b_init=b_init)
+    prep = gs.prepare(y, None, P0_bands=bands, noise_diag=noise, mu0=mu0, device=dev, **bounds)
+    f32 = dict(dtype=torch.float32, device=dev)
+    args = [prep[k] for k in ("p0d", "p0c", "y", "d", "mu", "p0mu")]
+    args += [torch.full((n_chains,), 100.0, **f32), torch.full((n_chains,), 1.0, **f32)]
+    kw = dict(logdet_p0=prep["logdet_p0"], logdet_d=prep["logdet_d"], a_lam=10.0, b_lam=1.0, a_tau=1.0, b_tau=1.0)
+    if box is not None:
+        kw.update(lo=prep["lo"], hi=prep["hi"], b_init=prep["b_init"].expand(n_chains, -1).contiguous())
+    return args, kw
+
+
+def mcmc_k4_args(dev, mcmc):
+    """k4_args for a built smoother MCMC, fed what the dispatcher feeds the kernel."""
+    b_dist = mcmc.model["b"]
+    box = None
+    if b_dist.truncated:
+        box = (np.asarray(b_dist.domain_response_lower), np.asarray(b_dist.domain_response_upper))
+    return k4_args(dev, mcmc.data["y"][:, 0], mcmc.data["P_lambda"].bands, mcmc.data["P_tau"].diag_,
+                   mcmc.data["mu"][:, 0], mcmc.n_chains, box, mcmc.initial_chain_state["b"].reshape(-1))
+
+
+def gmrf_small_phase(dev):
+    """K4 against its plain version on the same Philox bits, every value, both
+    variants, at (256 chains, p = 100) and at a ragged (1000, 1031); n_burn 3,
+    n_keep 5, n_thin 2."""
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs
+
+    worst = 0.0
+    for truncated in (False, True):
+        for chains, p in ((256, N_TIME), (1000, 1031)):
+            rng = np.random.default_rng(p)
+            s, P0 = rw1_p0(p, 1e-3)
+            y = np.sin(s / 20.0) + 2.0 * np.cos(s / 12.0) + 2.0 + rng.normal(0.0, 1.0, p)
+            box = T_BOX if truncated else None
+            args, kw = k4_args(dev, y, P0.bands, rng.uniform(0.5, 2.0, p), 0.1 * rng.normal(size=p), chains, box,
+                               np.clip(y, 1e-3, 3.5 - 1e-3))
+            hyp = dict(n_burn=3, n_keep=5, n_thin=2)
+            got = gs.gmrf_smoother_kernel(11, *args, **kw, **hyp)
+            want = gs.gmrf_smoother_plain(11, *args, **kw, **hyp)
+            torch.cuda.synchronize()
+            agree, err = compare(got, want)
+            name = f"{'truncated' if truncated else 'thomas'} ({chains}, {p})"
+            if agree != chains:
+                raise AssertionError(f"gmrf_smoother kernel, {name}: {chains - agree} of {chains} chains differ")
+            if truncated and not bool(torch.all((got["b"] >= kw["lo"]) & (got["b"] <= kw["hi"]))):
+                raise AssertionError(f"gmrf_smoother kernel, {name}: a draw left the box")
+            worst = max(worst, err)
+            log("gmrf", f"{name}, n_burn=3 n_iter=5 n_thin=2: all values agree with the plain version "
+                f"(rtol 1e-4), max abs err {err:.3g}")
+    return worst
+
+
+def truncated_mcmc(dev):
+    """bench_all.py's truncated_smoother at 4096 chains: its data (numpy seed 0),
+    box, priors and depth; precision_temporal over its one-minute date range is
+    the RW1 precision of linspace(0, 60, 100)."""
+    s = np.linspace(0.0, 60.0, N_TIME)
+    y = np.sin(s / 20.0) + 2.0 * np.cos(s / 12.0) + 2.0 + np.random.RandomState(0).normal(0.0, 1.0, N_TIME)
+    return smoother_model(dev, s, y, N_TIME, T_CHAINS, T_BURN, T_ITER, T_SEED, box=T_BOX)
+
+
+def long_mcmc(dev, n_burn=L_BURN, n_iter=L_ITER):
+    """The flagship model at p = 4096 (0.6 s spacing), past the spectral engine's
+    tridiagonal limit."""
+    s = 0.6 * np.arange(L_P)
+    y = np.sin(s / 20.0) + 2.0 * np.cos(s / 12.0) + 2.0 + np.random.RandomState(1).normal(0.0, 1.0, L_P)
+    return smoother_model(dev, s, y, L_P, L_CHAINS, n_burn, n_iter, SEED)
+
+
+def k4_cell(dev, tag, mcmc, engine, box):
+    """One K4 cell's run: MCMC.run(engine="auto") with the counts at 0 around it,
+    one K4 launch and no other, the store's shape, finiteness and box. Returns
+    the result, the counts and K4's inputs for that run."""
+    n_chains, n_iter, p = mcmc.n_chains, mcmc.n_iter, mcmc.data["y"].shape[0]
+    reset_launches()
+    t0 = time.perf_counter()
+    res = mcmc.run(engine="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if res.engine != engine or launches != only("gmrf_smoother", 1):
+        raise AssertionError(f"{tag}: engine {res.engine}, kernel launches {launches}")
+    b = res.store["b"]
+    if tuple(b.shape) != (n_chains, n_iter, p, 1) or tuple(res.log_post.shape) != (n_chains, n_iter):
+        raise AssertionError(f"{tag}: store b {tuple(b.shape)}, log_post {tuple(res.log_post.shape)}")
+    for name, v in (*res.store.items(), ("log_post", res.log_post)):
+        if not bool(torch.all(torch.isfinite(v))):
+            raise AssertionError(f"{tag}: non-finite values in {name}")
+    if box is not None and not (float(b.min()) >= box[0] and float(b.max()) <= box[1]):
+        raise AssertionError(f"{tag}: draws outside [{box[0]}, {box[1]}]")
+    log(tag, f"MCMC.run(engine='auto'): engine {res.engine}, kernel launches {launches}, b {tuple(b.shape)}, "
+        f"first run {wall:.3f} s; tau posterior mean {float(res.store['tau'].mean()):.4f}")
+    args, kw = mcmc_k4_args(dev, mcmc)
+    hyp = dict(n_burn=mcmc.n_burn, n_keep=n_iter, n_thin=1)
+    return res, launches, args, kw, hyp
+
+
+def k4_times(smi, tag, mcmc, args, kw, hyp, flop_per_row, ess_b, plain_ms, reps, plain_hyp=None):
+    """K4's time (CUDA events) and MCMC.run end to end, each the median of
+    ``reps`` runs, and the bound. ``plain_ms``
+    is the cell's check call of the plain version, on the whole run or, where
+    that is too slow, on the shorter run ``plain_hyp`` of the same width, on
+    which the kernel is then timed too."""
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs
+
+    n_chains, p = args[-1].shape[0], args[0].shape[0]
+
+    def kernel(h=hyp):
+        return gs.gmrf_smoother_kernel(mcmc.seed, *args, **kw, **h)
+
+    full_ms = cuda_ms(kernel, reps)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = mcmc.run(engine="auto")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del res
+    e2e = statistics.median(walls)
+    timed = plain_hyp or hyp
+    ms = full_ms if plain_hyp is None else cuda_ms(lambda: kernel(h=plain_hyp), 3)
+
+    def k4_bound(h):
+        n_sweeps, n_keep = h["n_burn"] + h["n_keep"] * h["n_thin"], h["n_keep"]
+        n_in = 6 * p + 2 * n_chains + (2 * p + n_chains * p if "lo" in kw else 0)
+        n_bytes = 4 * (n_in + n_chains * n_keep * (p + 3))
+        n_flop = n_chains * (n_sweeps * (flop_per_row * p + K4_FLOP_PER_SWEEP) + n_keep * K4_FLOP_PER_STORE)
+        return (*bound(n_bytes, n_flop), n_flop, n_bytes)
+
+    full_bound = k4_bound(hyp)
+    bound_ms, bound_by, n_flop, n_bytes = k4_bound(timed)
+    where = "" if plain_hyp is None else f" at n_burn {timed['n_burn']}, n_iter {timed['n_keep']}"
+    log(tag, f"{smi}: gmrf_smoother kernel {full_ms:.3f} ms for the whole run (median of {reps}), bound "
+        f"{full_bound[0]:.4f} ms ({full_bound[1]}: {full_bound[2]:.3g} FLOP, {full_bound[3]:.3g} B); MCMC.run end "
+        f"to end {1e3 * e2e:.3f} ms (median of {reps})")
+    log(tag, f"{smi}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (the check's call), bound {bound_ms:.4f} ms "
+        f"({bound_by}: {n_flop:.3g} FLOP, {n_bytes:.3g} B){where}")
+    log(tag, f"{smi}: ESS/s of b {ess_b / (full_ms / 1e3):.4g} on kernel time, {ess_b / e2e:.4g} end to end")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def truncated_phase(dev, smi):
+    """The truncated cell: one K4 launch, every chain against the plain version at
+    full width (>= 99.9 % agree), posterior means against the generic driver's
+    red-black run, times."""
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs
+
+    tag = "truncated"
+    mcmc = truncated_mcmc(dev)
+    res, launches, args, kw, hyp = k4_cell(dev, tag, mcmc, "fused_gmrf_smoother_truncated", T_BOX)
+    want, plain_ms = cuda_call_ms(lambda: gs.gmrf_smoother_plain(T_SEED, *args, **kw, **hyp))
+    got = {"b": res.store["b"][..., 0], "lam": res.store["lambda"][:, :, 0, 0], "tau": res.store["tau"][:, :, 0, 0],
+           "log_post": res.log_post}
+    agree, err = compare(got, want)
+    del want, got
+    if agree < 0.999 * T_CHAINS:
+        raise AssertionError(f"{tag}: only {agree} of {T_CHAINS} chains agree with the plain version")
+    moments = posterior_moments(res)
+    ess_b = float(moments["b"][2].mean())
+    del res
+    t0 = time.perf_counter()
+    gen = truncated_mcmc(dev).run()
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    if gen.engine != "generic" or not (float(gen.store["b"].min()) >= T_BOX[0]
+                                       and float(gen.store["b"].max()) <= T_BOX[1]):
+        raise AssertionError(f"{tag}: generic run {gen.engine} left the box or did not run")
+    z = moments_z(moments, posterior_moments(gen))
+    del gen
+    if not z < 5.0:
+        raise AssertionError(f"{tag}: posterior means off the generic run's by {z:.2f} MC sd")
+    log(tag, f"{agree} of {T_CHAINS} chains agree with the plain version (rtol 1e-4), max abs err {err:.3g}; "
+        f"means of b, lambda, tau within {z:.2f} MC sd of the generic run's (limit 5; generic run {gen_wall:.3f} s); "
+        f"mean ESS of b {ess_b:.1f} over {T_CHAINS * T_ITER} draws")
+    entry = k4_times(smi, tag, mcmc, args, kw, hyp, K4_FLOP_PER_TRUNC_ROW, ess_b, plain_ms, reps=3)
+    return {"launches": launches["gmrf_smoother"], "max_abs_err": err, **entry}, launches
+
+
+def thomas_long_phase(dev, smi):
+    """The long-series cell: one K4 launch, the kernel against the plain version
+    on a short run at full width, posterior means against the generic (K3) run,
+    times."""
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs
+
+    tag = "thomas_long"
+    mcmc = long_mcmc(dev)
+    res, launches, args, kw, hyp = k4_cell(dev, tag, mcmc, "fused_gmrf_smoother", None)
+    moments = posterior_moments(res, chunk_size=256)
+    ess_b = float(moments["b"][2].mean())
+    del res
+    torch.cuda.empty_cache()
+    short = dict(n_burn=2, n_keep=3, n_thin=1)
+    got = gs.gmrf_smoother_kernel(SEED, *args, **kw, **short)
+    want, plain_ms = cuda_call_ms(lambda: gs.gmrf_smoother_plain(SEED, *args, **kw, **short))
+    agree, err = compare(got, want)
+    del got, want
+    if agree != L_CHAINS:
+        raise AssertionError(f"{tag}: {L_CHAINS - agree} of {L_CHAINS} chains differ from the plain version")
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = long_mcmc(dev, L_GEN_BURN, L_GEN_ITER).run()
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = read_launches()
+    if gen.engine != "generic" or gen_launches != only("tridiag_canonical", L_GEN_BURN + L_GEN_ITER):
+        raise AssertionError(f"{tag}: generic run {gen.engine}, kernel launches {gen_launches}")
+    z = moments_z(moments, posterior_moments(gen, chunk_size=256))
+    del gen
+    torch.cuda.empty_cache()
+    if not z < 5.0:
+        raise AssertionError(f"{tag}: posterior means off the generic run's by {z:.2f} MC sd")
+    log(tag, f"kernel and plain version agree on all {L_CHAINS} chains at p = {L_P}, n_burn 2, n_iter 3 (rtol "
+        f"1e-4), max abs err {err:.3g}; means of b, lambda, tau within {z:.2f} MC sd of the generic (K3) run's "
+        f"(limit 5; generic run of {L_GEN_BURN} + {L_GEN_ITER} sweeps {gen_wall:.3f} s); mean ESS of b {ess_b:.1f} over "
+        f"{L_CHAINS * L_ITER} draws")
+    entry = k4_times(smi, tag, mcmc, args, kw, hyp, K4_FLOP_PER_THOMAS_ROW, ess_b, plain_ms, reps=1,
+                     plain_hyp=short)
+    return {"launches": launches["gmrf_smoother"], "max_abs_err": err, **entry}
+
+
 def main():
     smi = device_phase()
     dev = torch.device("cuda", 0)
-    build_phase()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        building = pool.submit(build_phase)  # nvcc runs in processes of its own meanwhile
+        mcmc, args, kw, hyp, want, k1_plain_ms = main_plain(dev)
+        building.result()
     prng_res = prng_phase(dev)
     spectral_small_phase(dev)
     tri_res = tridiag_phase(dev, smi)
-    mcmc, args, kw, hyp, launches, err, ess_b, fused_moments = main_path_phase(dev)
-    k1_res = timing_phase(mcmc, args, kw, hyp, ess_b, smi)
+    launches, err, ess_b, fused_moments = main_path_phase(mcmc, want)
+    del want
+    k1_res = timing_phase(mcmc, args, kw, hyp, ess_b, k1_plain_ms, smi)
     del mcmc, args
     generic_launches = generic_phase(dev, fused_moments, tri_res["ms"], smi)
+    trunc_draws = truncnorm_phase(dev)
+    k4_err = gmrf_small_phase(dev)
+    k4_trunc, k4_trunc_launches = truncated_phase(dev, smi)
+    k4_long = thomas_long_phase(dev, smi)
+    k4 = {"route": "cuda", "source": "openmcmc_tpu_torch/csrc/gmrf_smoother.cu", "replaces": REPLACES["gmrf_smoother"]}
     kernels = [
         {"name": "spectral_smoother", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/spectral_smoother.cu",
          "replaces": REPLACES["spectral_smoother"], "launches": launches["spectral_smoother"],
          "max_abs_err": err, **k1_res},
         {"name": "tridiag_canonical", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/tridiag_canonical.cu",
          "replaces": REPLACES["tridiag_canonical"], "launches": generic_launches["tridiag_canonical"], **tri_res},
+        {"name": "gmrf_smoother_truncated", **k4, **k4_trunc,
+         "max_abs_err": max(k4_trunc["max_abs_err"], k4_err)},
+        {"name": "gmrf_smoother_thomas", **k4, **k4_long, "max_abs_err": max(k4_long["max_abs_err"], k4_err)},
     ]
-    # prng_draws is not launched by either path: its device functions run
-    # inlined in spectral_smoother, and this kernel only exposes them for the check
+    # prng_draws and truncnorm_draws are not launched by any path: their device
+    # functions run inlined in the smoother kernels, and these kernels only
+    # expose them for the check
     device_functions = [
         {"name": "prng_draws", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/prng_draws.cu",
          "replaces": REPLACES["prng_draws"], "launches": launches["prng_draws"],
-         "inlined_in": "spectral_smoother", **prng_res},
+         "inlined_in": "spectral_smoother, gmrf_smoother", **prng_res},
+        {"name": "truncnorm_draws", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/prng_draws.cu",
+         "replaces": REPLACES["truncnorm_draws"], "launches": k4_trunc_launches["truncnorm_draws"],
+         "inlined_in": "gmrf_smoother", **trunc_draws},
     ]
+    log("done", "every phase passed")
     print(smi)
     print(json.dumps({"kernels": kernels, "device_function_checks": device_functions}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

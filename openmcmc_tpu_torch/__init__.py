@@ -1,10 +1,12 @@
 """openmcmc_tpu_torch: the PyTorch and CUDA port of openmcmc_tpu.
 
 The port mirrors the JAX package's module tree. What it covers so far is the
-flagship GMRF smoother's main path: the model layer, ``MCMC.run(engine="auto")``,
-the fused-engine dispatch to the spectral smoother, its hand-written CUDA kernel
-(``csrc/spectral_smoother.cu``) with the in-kernel Philox random-number layer
-(``csrc/philox.cuh``, ``csrc/prng.cuh``), and multi-chain ESS. Everything off that
+GMRF smoother family: the model layer, the generic driver, ``MCMC.run(engine=
+"auto")`` with the fused-engine dispatch to the spectral smoother
+(``csrc/spectral_smoother.cu``) and the Thomas-scan smoother with its
+box-truncated variant (``csrc/gmrf_smoother.cu``), the in-kernel Philox
+random-number layer (``csrc/philox.cuh``, ``csrc/prng.cuh``), and multi-chain
+diagnostics. Everything off that
 path raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 Importing the package sets the full-fp32 matmul invariant once: no TF32 anywhere,

@@ -30,8 +30,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("prng_draws.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
-HEADERS = ("philox.cuh", "prng.cuh")
+SOURCES = ("gmrf_smoother.cu", "prng_draws.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
+HEADERS = ("layout.cuh", "philox.cuh", "prng.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -114,6 +114,10 @@ def library() -> ctypes.CDLL:
     lib.prng_draws_launch.restype = ctypes.c_int
     lib.tridiag_canonical_launch.argtypes = [_P] * 8
     lib.tridiag_canonical_launch.restype = ctypes.c_int
+    lib.gmrf_smoother_launch.argtypes = [_P] * 18
+    lib.gmrf_smoother_launch.restype = ctypes.c_int
+    lib.truncnorm_draws_launch.argtypes = [ctypes.c_uint32] + [_P] * 8 + [ctypes.c_int, _P]
+    lib.truncnorm_draws_launch.restype = ctypes.c_int
     return lib
 
 

@@ -36,7 +36,7 @@ def state_from_reference(state: dict, device="cuda") -> dict:
         kind = type(value).__name__
         if any(hasattr(value, a) for a in _UNPORTED):
             raise NotImplementedError(
-                f"state[{name!r}]: {kind} is not ported yet (ROADMAP.md queue 1: Thomas smoother)"
+                f"state[{name!r}]: {kind} is not ported yet (ROADMAP.md queue 1: sparse and permuted priors)"
             )
         if hasattr(value, "bands"):
             out[name] = st.Banded(_leaf(name, value.bands))

@@ -1,7 +1,7 @@
 // Device sampling functions over Philox bits: the CUDA counterpart of the TPU
 // kernels' in-kernel random-number layer, openmcmc_tpu/fused/prng.py
 // (uniform :178, normal_icdf :244, erfinv_poly :310, gamma_mt2 :262,
-// gamma_mt :372, _mt_rounds :159).
+// gamma_mt :372, _mt_rounds :159, erf_poly :295, truncnorm_draw :339).
 //
 // Every expression keeps the JAX function's operation order and float32
 // constants, and the library is compiled with --fmad=false, so a kernel rounds
@@ -39,6 +39,33 @@ __device__ __forceinline__ float normal_icdf_from_bits(uint32_t bits) {
   float u = uniform_from_bits(bits);
   float t = fminf(fmaxf(2.0f * u - 1.0f, -1.0f + 1.2e-7f), 1.0f - 1.2e-7f);
   return 1.41421356237309515f * erfinv_poly(t);
+}
+
+// Abramowitz-Stegun 7.1.26 erf polynomial (erf_poly :295). For huge |x| (an
+// open bound of +-1e30 over a scale) ax * ax overflows to inf, expf gives 0 and
+// the result saturates to +-1, as in the JAX function.
+__device__ __forceinline__ float erf_poly(float x) {
+  const float sgn = x < 0.0f ? -1.0f : 1.0f;
+  const float ax = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.3275911f * ax);
+  const float poly =
+      t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  return sgn * (1.0f - poly * expf(-ax * ax));
+}
+
+// Inverse-CDF truncated-normal draw on [lo, hi] from one word of Philox bits
+// (truncnorm_draw :339): clamped Giles inverse erf, clipped into the
+// standardized bounds and then into [lo, hi].
+__device__ __forceinline__ float truncnorm_from_bits(float mu, float scale, float lo, float hi, uint32_t bits) {
+  const float a = (lo - mu) / scale;
+  const float b = (hi - mu) / scale;
+  const float ea = erf_poly(a * 0.707106781186547573f);
+  const float eb = erf_poly(b * 0.707106781186547573f);
+  const float u = uniform_from_bits(bits);
+  const float t = ea + u * (eb - ea);
+  float z = 1.41421356237309515f * erfinv_poly(fminf(fmaxf(t, -1.0f + 1e-7f), 1.0f - 1e-7f));
+  z = fminf(fmaxf(z, a), b);
+  return fminf(fmaxf(mu + scale * z, lo), hi);
 }
 
 // One Marsaglia-Tsang Gamma draw as the TPU kernels make it: a fixed number of

@@ -30,6 +30,7 @@
 // would break the full-fp32 invariant).
 #include <cuda_runtime.h>
 
+#include "layout.cuh"
 #include "prng.cuh"
 
 struct SmootherParams {
@@ -55,14 +56,6 @@ struct SmootherParams {
 };
 
 static constexpr int kMaxSmem = 232448;  // 227 KB of dynamic shared memory per block
-
-// Stored-draw index of sweep `it`, or -1 (openmcmc_tpu/fused/layout.py:6).
-__device__ __forceinline__ int store_index(int it, int n_burn, int n_thin) {
-  int rel = it - n_burn;
-  if (rel < 0) return -1;
-  if (n_thin == 1) return rel;
-  return (rel % n_thin == n_thin - 1) ? rel / n_thin : -1;
-}
 
 template <bool V_SMEM>
 __global__ void spectral_smoother_kernel(SmootherParams prm, const float* __restrict__ VT,

@@ -1,12 +1,12 @@
 """Location-scale distributions (port of ``openmcmc_tpu/distributions/location_scale.py``).
 
 Ported so far: :class:`Normal` in precision form with an Identity mean and an
-Identity or ScaledMatrix precision: its density and its (non-truncated) draw.
-Box truncation is recorded (the dispatcher routes a truncated prior to the
-Thomas kernel, K4), but its density and draw wait for that kernel (ROADMAP.md
-queue 1: Thomas smoother); ``n_active`` waits for reversible jump (queue 1:
-reversible jump). Entries may carry leading chain axes: state[name] is (p, n)
-or (..., p, n), and densities keep the batch axes.
+Identity or ScaledMatrix precision: its density and its draw, box-truncated or
+not. A truncated Normal keeps the reference's unrenormalised density (-inf
+outside the box) and draws by rejection-initialised red-black Gibbs;
+``n_active`` waits for reversible jump (ROADMAP.md queue 1: reversible jump).
+Entries may carry leading chain axes: state[name] is (p, n) or (..., p, n), and
+densities keep the batch axes.
 """
 
 from __future__ import annotations
@@ -79,11 +79,24 @@ class Normal(LocationScale):
     def truncated(self) -> bool:
         return self.domain_response_lower is not None or self.domain_response_upper is not None
 
-    def _no_truncation(self, what):
-        if self.truncated:
-            raise NotImplementedError(
-                f"the truncated Normal {what} is not ported yet (ROADMAP.md queue 1: Thomas smoother)"
-            )
+    def _bounds(self, device=None):
+        """The box as (p, 1) float32 columns (or a (1, 1) scalar), None for an open side."""
+        def col(v):
+            return None if v is None else torch.tensor(v, dtype=torch.float32, device=device).reshape(-1, 1)
+
+        return col(self.domain_response_lower), col(self.domain_response_upper)
+
+    def out_of_domain(self, state: dict) -> torch.Tensor:
+        """Does the response lie outside the box? One boolean per batch element
+        (a 0-d tensor for an unbatched state)."""
+        x = state[self.response]
+        lo, hi = self._bounds(x.device)
+        bad = torch.zeros(x.shape[:-2], dtype=torch.bool, device=x.device)
+        if lo is not None:
+            bad = bad | torch.any(x < lo, dim=(-2, -1))
+        if hi is not None:
+            bad = bad | torch.any(x > hi, dim=(-2, -1))
+        return bad
 
     def unscaled_log_det(self, state: dict) -> float:
         """log|P| of a ScaledMatrix precision's matrix: constant data in every
@@ -96,8 +109,16 @@ class Normal(LocationScale):
         1/2 (d log c + log|P| - d log 2 pi - c (x - mu)' P (x - mu)), per column,
         summed over columns unless ``by_observation``; the batch axes stay.
         ``log|P|`` comes from the structured Cholesky, as in the JAX package, or
-        from ``log_det`` when the caller computed it once (:meth:`unscaled_log_det`)."""
-        self._no_truncation("density")
+        from ``log_det`` when the caller computed it once (:meth:`unscaled_log_det`).
+        A truncated Normal is -inf where the response leaves the box (the
+        reference's unrenormalised truncation)."""
+        log_p = self._log_p(state, by_observation, log_det)
+        if self.truncated:
+            bad = self.out_of_domain(state)
+            log_p = torch.where(bad[..., None] if by_observation else bad, -torch.inf, log_p)
+        return log_p
+
+    def _log_p(self, state: dict, by_observation: bool, log_det):
         x = state[self.response]
         mu = self.mean.predictor(state)
         if not isinstance(self.precision, ScaledMatrix):
@@ -115,8 +136,12 @@ class Normal(LocationScale):
         return log_p if by_observation else torch.sum(log_p, dim=-1)
 
     def sample(self, key, state: dict, n: int = 1, batch_shape=()):
-        """A draw from the (non-truncated) Normal, (..., p, n); ``batch_shape``
-        gives the chains their own draws where mean and precision are data."""
-        self._no_truncation("draw")
+        """A draw from the Normal, (..., p, n); ``batch_shape`` gives the chains
+        their own draws where mean and precision are data. A truncated Normal
+        draws by :func:`gmrf.sample_truncated_normal`."""
+        mean = self.mean.predictor(state)
         Q = st.as_structured(self.precision.predictor(state))
-        return gmrf.sample_normal(key, self.mean.predictor(state), Q=Q, n=n, batch_shape=batch_shape)
+        if not self.truncated:
+            return gmrf.sample_normal(key, mean, Q=Q, n=n, batch_shape=batch_shape)
+        lo, hi = self._bounds(mean.device)
+        return gmrf.sample_truncated_normal(key, mean, Q=Q, lower=lo, upper=hi, n=n, batch_shape=batch_shape)

@@ -6,13 +6,13 @@ the constants the engines assume, exactly as in the JAX package. A failed match
 returns None and the driver falls back to the generic driver, as in the JAX
 package.
 
-Ported so far: the smoother matcher, routed to the spectral engine (kernel K1).
-Where the JAX package would pick the Thomas kernel (a tridiagonal P0 with
-p > 1024, or a box-truncated latent prior), the port raises
-``NotImplementedError`` naming K4. The other matchers (linreg, random walk,
-mMALA, mixture, reversible jump) and mesh sharding are not ported (ROADMAP.md
-queue 1: linear regression, Metropolis family, mixture, reversible jump,
-parallel).
+Ported so far: the smoother matcher, routed as in the JAX package to the
+spectral engine (kernel K1) or to the Thomas-scan engine (kernel K4) for a
+tridiagonal P0 with p > 1024 (``fused_gmrf_smoother``) or a box-truncated
+latent prior (``fused_gmrf_smoother_truncated``). The other matchers (linreg,
+random walk, mMALA, mixture, reversible jump) and mesh sharding are not ported
+(ROADMAP.md queue 1: linear regression, Metropolis family, mixture, reversible
+jump, parallel).
 """
 
 from __future__ import annotations
@@ -131,7 +131,9 @@ def _gamma_hypers(mcmc, name):
 def _match_smoother(mcmc) -> Optional[Callable]:
     """y ~ N(b, (tau D)^-1); b ~ N(mu0, (lam P0)^-1); Gamma scales; D a positive
     diagonal, P0 any structured matrix. Runs the spectral engine for p <= 8192
-    (p <= 1024 when P0 is tridiagonal)."""
+    (p <= 1024 when P0 is tridiagonal) and the Thomas-scan engine for a
+    tridiagonal P0 beyond that; a box-truncated latent prior needs a tridiagonal
+    P0 and always takes the Thomas-scan engine's red-black sweep."""
     trip = _conjugate_triplet(mcmc)
     if trip is None:
         return None
@@ -144,6 +146,8 @@ def _match_smoother(mcmc) -> Optional[Callable]:
     if y_dist is None or not isinstance(b_dist, Normal) or y_dist.truncated:
         return None
     truncated = b_dist.truncated
+    if truncated and getattr(b_dist, "n_active", None) is not None:
+        return None
     sp_y = _scaled_precision(y_dist)
     sp_b = _scaled_precision(b_dist)
     if sp_y is None or sp_b is None:
@@ -158,8 +162,10 @@ def _match_smoother(mcmc) -> Optional[Callable]:
         return None
     tridiag = isinstance(plam, st.Banded) and plam.bw == 1
     spectral = st.dim(plam) <= (MAX_P_SMOOTHER if tridiag else MAX_P_SMOOTHER_STREAM)
-    if truncated and not tridiag:
-        return None
+    if truncated:
+        if not tridiag:
+            return None  # the red-black sweep is written for two colours (bw = 1)
+        spectral = False
     if not spectral and not tridiag:
         return None
     mu = _column(mcmc.data.get(_identity_mean_name(b_dist)))
@@ -176,28 +182,8 @@ def _match_smoother(mcmc) -> Optional[Callable]:
     lam0 = _initial_scalar(mcmc, lam_name)
     if None in (hyp_tau, hyp_lam, tau0, lam0):
         return None
-    if truncated or not spectral:
-        raise NotImplementedError(
-            "this smoother needs the Thomas-scan kernel K4 (fused/gmrf_smoother.py), which is not "
-            "ported yet (ROADMAP.md queue 2, K4): a truncated latent prior or a tridiagonal P0 with "
-            f"p > {MAX_P_SMOOTHER}"
-        )
 
-    # host preparation, once per match. log_post must match Model.log_p's
-    # convention for log|P0|: the clamped structured Cholesky, which for an
-    # intrinsic prior differs from sum log s; its sequential tridiagonal
-    # recurrence runs on a host copy rather than as p tiny device launches
-    logdet_p0 = st.host_log_det(plam)
-    plam_dense = st.to_dense(st.to(plam, "cpu")).numpy()
-    noise_host = ptau.diag_.detach().cpu().numpy()
-
-    def run(seed, bit_source=None):
-        out = run_spectral_smoother(
-            seed, y, plam_dense, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=mcmc.n_chains,
-            a_lam=hyp_lam[0], b_lam=hyp_lam[1], a_tau=hyp_tau[0], b_tau=hyp_tau[1],
-            lam0=lam0, tau0=tau0, noise_diag=noise_host, mu0=mu, logdet_p0=logdet_p0,
-            n_thin=_kernel_thin(mcmc), device=mcmc.device, bit_source=bit_source,
-        )
+    def package(out):
         store = {
             latent: out["b"][..., None],
             lam_name: out["lam"][..., None, None],
@@ -205,6 +191,49 @@ def _match_smoother(mcmc) -> Optional[Callable]:
         }
         return store, out["log_post"], {latent: {}, lam_name: {}, tau_name: {}}
 
-    run.engine_name = "fused_smoother_spectral"
+    if spectral:
+        # host preparation, once per match. log_post must match Model.log_p's
+        # convention for log|P0|: the clamped structured Cholesky, which for an
+        # intrinsic prior differs from sum log s; its sequential tridiagonal
+        # recurrence runs on a host copy rather than as p tiny device launches
+        logdet_p0 = st.host_log_det(plam)
+        plam_dense = st.to_dense(st.to(plam, "cpu")).numpy()
+        noise_host = ptau.diag_.detach().cpu().numpy()
+
+        def run(seed, bit_source=None):
+            out = run_spectral_smoother(
+                seed, y, plam_dense, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=mcmc.n_chains,
+                a_lam=hyp_lam[0], b_lam=hyp_lam[1], a_tau=hyp_tau[0], b_tau=hyp_tau[1],
+                lam0=lam0, tau0=tau0, noise_diag=noise_host, mu0=mu, logdet_p0=logdet_p0,
+                n_thin=_kernel_thin(mcmc), device=mcmc.device, bit_source=bit_source,
+            )
+            return package(out)
+
+        run.engine_name = "fused_smoother_spectral"
+    else:
+        from openmcmc_tpu_torch.fused.gmrf_smoother import run_fused_smoother
+
+        p_lat = st.dim(plam)
+        lower_v = upper_v = b_init_v = None
+        if truncated:
+            lo_t, hi_t = b_dist.domain_response_lower, b_dist.domain_response_upper
+            lower_v = None if lo_t is None else np.broadcast_to(np.asarray(lo_t, np.float64), (p_lat,))
+            upper_v = None if hi_t is None else np.broadcast_to(np.asarray(hi_t, np.float64), (p_lat,))
+            b0 = mcmc.initial_chain_state.get(latent)
+            b_init_v = None if b0 is None else b0.detach().cpu().numpy().astype(np.float64).reshape(-1)
+            if b_init_v is not None and b_init_v.shape[0] != p_lat:
+                return None  # per-chain initial latents are not representable
+
+        def run(seed, bit_source=None):
+            out = run_fused_smoother(
+                seed, y, None, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=mcmc.n_chains,
+                a_lam=hyp_lam[0], b_lam=hyp_lam[1], a_tau=hyp_tau[0], b_tau=hyp_tau[1],
+                lam0=lam0, tau0=tau0, P0_bands=plam.bands, noise_diag=ptau.diag_, mu0=mu,
+                lower=lower_v, upper=upper_v, b_init=b_init_v, n_thin=_kernel_thin(mcmc),
+                device=mcmc.device, bit_source=bit_source,
+            )
+            return package(out)
+
+        run.engine_name = "fused_gmrf_smoother_truncated" if truncated else "fused_gmrf_smoother"
     run.store_keys = frozenset({latent, lam_name, tau_name})
     return run

@@ -2,9 +2,11 @@
 
 Port of ``openmcmc_tpu/fused/prng.py``. On the card these functions run inside
 the kernels (``csrc/philox.cuh``, ``csrc/prng.cuh``); here are their plain
-PyTorch versions, which the CPU path and the CPU tests run, and the wrapper of
-the ``prng_draws`` kernel, which exposes the device functions over a tensor of
-counters so that they can be checked on their own.
+PyTorch versions, which the CPU path and the CPU tests run, and the wrappers of
+the ``prng_draws`` and ``truncnorm_draws`` kernels, which expose the device
+functions over a tensor of counters so that they can be checked on their own.
+``gamma_mt_elem`` and ``truncnorm_logpdf`` are not on a ported path yet (they
+come with the random-walk, mixture and reversible-jump kernels).
 
 Bits. The TPU kernels draw from the chip's hardware generator, reseeded per grid
 program. The port draws from Philox4x32-10 with a counter layout that does not
@@ -32,6 +34,7 @@ import torch
 LOG_2PI = 1.8378770664093453
 GAMMA_ROUNDS = 6
 _SQRT2 = 1.4142135623730951
+_INV_SQRT2 = 0.7071067811865476
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -152,6 +155,32 @@ def normal_icdf(shape, bit_source):
     u = uniform(shape, bit_source)
     t = torch.clamp(2.0 * u - 1.0, -1.0 + 1.2e-7, 1.0 - 1.2e-7)
     return _SQRT2 * erfinv_poly(t)
+
+
+def erf_poly(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz-Stegun 7.1.26 erf polynomial (max abs error 1.5e-7): the
+    kernels' erf, exp and one division only. Saturates to +-1 for huge |x|."""
+    sgn = torch.where(x < 0.0, -1.0, 1.0)
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return sgn * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def truncnorm_draw(mu, scale, lo, hi, shape, bit_source):
+    """Inverse-CDF truncated-normal draw on [lo, hi] with the polynomial erf pair:
+    the standardized bounds' erf values, one uniform, the Giles inverse erf with
+    its argument clamped to +-(1 - 1e-7), then the draw clipped into the bounds
+    in both coordinates. An open side is +-1e30, whose erf saturates to +-1."""
+    a = (lo - mu) / scale
+    b = (hi - mu) / scale
+    ea = erf_poly(a * _INV_SQRT2)
+    eb = erf_poly(b * _INV_SQRT2)
+    u = uniform(shape, bit_source)
+    t = ea + u * (eb - ea)
+    z = _SQRT2 * erfinv_poly(torch.clamp(t, -1.0 + 1e-7, 1.0 - 1e-7))
+    z = torch.minimum(torch.maximum(z, a), b)
+    return torch.minimum(torch.maximum(mu + scale * z, lo), hi)
 
 
 def _mt_squeeze(d, c, value, rate, rounds, bit_source):
@@ -315,3 +344,45 @@ def draws(seed: int, ctr: torch.Tensor, a1: float, a2: float, rate1: float = 1.0
 
 
 draws.launches = 0
+
+
+def truncnorm_draws_plain(seed: int, ctr: torch.Tensor, x, mu, scale, lo, hi):
+    """Plain version of :func:`truncnorm_draws`: per counter row, ``erf_poly(x)``
+    and a :func:`truncnorm_draw` on each of the 4 words of its Philox block."""
+    c = ctr.to(torch.int64) & _MASK32
+    words = torch.stack(philox4x32(c[:, 0], c[:, 1], c[:, 2], c[:, 3], seed), dim=1)
+    return erf_poly(x), truncnorm_draw(mu, scale, lo, hi, tuple(words.shape), lambda shape: words)
+
+
+def truncnorm_draws(seed: int, ctr: torch.Tensor, x, mu, scale, lo, hi):
+    """``erf_poly(x)`` and truncated-normal draws on [lo, hi] (all (n, 4) float32)
+    for a (n, 4) int32 tensor of Philox counters: the device functions the Thomas
+    kernel inlines, launched alone. A CUDA tensor launches ``truncnorm_draws``
+    (``csrc/prng_draws.cu``); a CPU tensor takes :func:`truncnorm_draws_plain`."""
+    if ctr.device.type == "cpu":
+        return truncnorm_draws_plain(seed, ctr, x, mu, scale, lo, hi)
+    if ctr.device.type != "cuda":
+        raise ValueError(f"truncnorm draws: unsupported device {ctr.device}")
+    if ctr.dtype != torch.int32 or ctr.dim() != 2 or ctr.shape[1] != 4 or not ctr.is_contiguous():
+        raise ValueError("truncnorm draws: counters must be a contiguous (n, 4) int32 tensor")
+    for t in (x, mu, scale, lo, hi):
+        if t.shape != ctr.shape or t.dtype != torch.float32 or t.device != ctr.device or not t.is_contiguous():
+            raise ValueError("truncnorm draws: x, mu, scale, lo, hi must be contiguous (n, 4) float32 on ctr's device")
+    from openmcmc_tpu_torch import _build
+
+    n = ctr.shape[0]
+    erf = torch.empty_like(x)
+    out = torch.empty_like(x)
+    lib = _build.library()
+    with torch.cuda.device(ctr.device):
+        stream = torch.cuda.current_stream(ctr.device).cuda_stream
+        err = lib.truncnorm_draws_launch(
+            int(seed) & _MASK32, ctr.data_ptr(), x.data_ptr(), mu.data_ptr(), scale.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), erf.data_ptr(), out.data_ptr(), n, stream,
+        )
+    truncnorm_draws.launches += 1
+    _build.check(err, "truncnorm_draws")
+    return erf, out
+
+
+truncnorm_draws.launches = 0

@@ -33,7 +33,7 @@ import torch
 from openmcmc_tpu_torch.fused import prng
 from openmcmc_tpu_torch.fused.layout import store_index
 
-MAX_P_SMOOTHER = 1024  # tridiagonal P0 past this goes to the Thomas kernel (K4, not ported)
+MAX_P_SMOOTHER = 1024  # tridiagonal P0 past this goes to the Thomas kernel (K4, fused/gmrf_smoother.py)
 MAX_P_SMOOTHER_STREAM = 8192  # any other P0: the host eigendecomposition bounds p
 
 _EIG_CACHE: dict = {}  # (P0 bytes, noise-diagonal bytes) -> (V, s); capacity 8

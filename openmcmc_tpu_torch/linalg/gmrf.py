@@ -1,16 +1,20 @@
 """GMRF precision builders and Gaussian samplers (port of ``openmcmc_tpu/linalg/gmrf.py``).
 
 Ported so far: :func:`precision_irregular` (the RW1 prior of the flagship
-smoother), :func:`sample_normal`, :func:`sample_normal_canonical` and
-:func:`mvn_log_pdf`, chain-batched through leading axes (see
-:mod:`openmcmc_tpu_torch.linalg.structured`). The truncated samplers and
-``Permuted`` precisions come with the Thomas kernel (ROADMAP.md queue 1: Thomas
-smoother); ``precision_temporal`` with the generic driver's follow-up (queue 1
-item 2, deferred).
+smoother), :func:`sample_normal`, :func:`sample_normal_canonical`,
+:func:`mvn_log_pdf`, and the box-truncated machinery of the generic driver
+(:func:`truncated_normal_rv`, the red-black schedule of
+:func:`gibbs_canonical_truncated_normal`, :func:`sample_truncated_normal_rejection`,
+:func:`sample_truncated_normal`), all chain-batched through leading axes (see
+:mod:`openmcmc_tpu_torch.linalg.structured`). The lexicographic truncated
+schedule, ``Permuted`` precisions and ``truncated_normal_log_pdf`` are not ported
+yet (ROADMAP.md queue 1: sparse and permuted priors); ``precision_temporal``
+comes with the examples (queue 1: examples and entry).
 
 Randomness: where the JAX package takes a key, the port takes a :class:`Key`,
 the run's ``torch.Generator`` plus the Philox key and call counter of kernel
-draws.
+draws. Truncated draws take their uniforms from the generator, and ``torch.erf``
+stands for ``lax.erf``.
 """
 
 from __future__ import annotations
@@ -22,8 +26,11 @@ import torch
 
 from openmcmc_tpu_torch.linalg import structured as st
 from openmcmc_tpu_torch.linalg import tridiag
+from openmcmc_tpu_torch.linalg.random import fast_erfinv
 
 _LOG_2PI = math.log(2.0 * math.pi)
+_SQRT2 = 1.4142135623730951
+_SPARSE_ITEM = "ROADMAP.md queue 1: sparse and permuted priors"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,3 +128,161 @@ def mvn_log_pdf(x, mu, Q=None, L=None, by_observation: bool = False) -> torch.Te
     if vec:
         return log_p[..., 0]
     return log_p if by_observation else torch.sum(log_p, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Box-truncated Gaussians
+# ---------------------------------------------------------------------------
+
+
+def _bound_column(bound, p: int, fill: float, like: torch.Tensor) -> torch.Tensor:
+    """A scalar or (p,)-shaped bound as a (p, 1) column on ``like``'s device and
+    dtype; ``None`` is the open side ``fill`` (+-inf)."""
+    if bound is None:
+        return torch.full((p, 1), fill, dtype=like.dtype, device=like.device)
+    return torch.as_tensor(bound, dtype=like.dtype, device=like.device).reshape(-1, 1).expand(p, 1)
+
+
+def _standardize_bounds(mean, scale, lower, upper):
+    lower = -math.inf if lower is None else lower
+    upper = math.inf if upper is None else upper
+    return (lower - mean) / scale, (upper - mean) / scale
+
+
+def truncated_normal_rv(key: Key, mean, scale, lower=None, upper=None, shape=None) -> torch.Tensor:
+    """Truncated-normal draws on [lower, upper], elementwise broadcast (inverse CDF
+    with ``torch.erf`` and the Giles inverse erf, uniforms from the key's
+    generator). The draw is clipped into the box in the original coordinates
+    too, so that rounding never puts it 1 ulp outside."""
+    mean = torch.as_tensor(mean)
+    if not mean.dtype.is_floating_point:
+        mean = mean.to(torch.float32)
+    f = dict(dtype=mean.dtype, device=mean.device)
+    scale = torch.as_tensor(scale, **f)
+    lo = None if lower is None else torch.as_tensor(lower, **f)
+    hi = None if upper is None else torch.as_tensor(upper, **f)
+    a, b = _standardize_bounds(mean, scale, lo, hi)
+    if shape is None:
+        shape = torch.broadcast_shapes(mean.shape, scale.shape, a.shape, b.shape)
+    a, b = a.expand(shape), b.expand(shape)
+    ea = torch.erf(a / _SQRT2)
+    eb = torch.erf(b / _SQRT2)
+    u = torch.rand(tuple(shape), generator=key.generator, **f)
+    t = ea + u * (eb - ea)
+    z = _SQRT2 * fast_erfinv(torch.clamp(t, -1.0 + 1e-7, 1.0 - 1e-7))
+    z = torch.clamp(z, a, b)
+    out = mean + scale * z
+    if lo is not None:
+        out = torch.maximum(out, lo)
+    if hi is not None:
+        out = torch.minimum(out, hi)
+    return out
+
+
+def gibbs_canonical_truncated_normal(key: Key, b, Q, x, lower=None, upper=None, schedule: str = "lex"):
+    """One coordinate-wise Gibbs sweep of x ~ N(Q^-1 b, Q^-1) truncated to
+    lower < x < upper; x is (p,), (p, n) or (..., p, n), each column a chain,
+    and b broadcasts against it.
+
+    Only ``schedule="red_black"`` on a Banded or Diagonal Q is ported: the
+    chromatic sweep, bw + 1 vectorised colour updates. The lexicographic sweep
+    and permuted precisions raise."""
+    Qs = st.as_structured(Q)
+    if schedule == "red_black" and isinstance(Qs, (st.Banded, st.Diagonal)):
+        return _gibbs_truncated_red_black(key, b, Qs, x, lower, upper)
+    raise NotImplementedError(
+        f"the {schedule!r} truncated Gibbs schedule on a {type(Qs).__name__} precision is not ported yet "
+        f"({_SPARSE_ITEM})"
+    )
+
+
+def _gibbs_truncated_red_black(key: Key, b, Qs, x, lower, upper) -> torch.Tensor:
+    """Chromatic (red-black) truncated Gibbs sweep for a banded or diagonal Q.
+
+    Colour class {i : i mod (bw + 1) == c} is an independent set of the
+    precision graph, so given the other classes its conditionals factorise and
+    the class is one vectorised truncated draw; the classes update in order,
+    each reading the ones before it."""
+    p = st.dim(Qs)
+    x = torch.as_tensor(x)
+    shape_in = x.shape
+    xf = x if x.dim() >= 2 else x.reshape(p, 1)
+    b = torch.as_tensor(b)
+    bc = b if b.dim() >= 2 else b.reshape(p, 1)
+    lo = _bound_column(lower, p, -math.inf, xf)
+    hi = _bound_column(upper, p, math.inf, xf)
+    q_diag = st.diag(Qs)[..., None]
+    v = 1.0 / q_diag
+    s = torch.sqrt(v)
+    n_colors = 1 if isinstance(Qs, st.Diagonal) else Qs.bw + 1
+    colors = (torch.arange(p, device=xf.device) % n_colors)[:, None]
+    for c in range(n_colors):
+        cond_mean = v * (bc - st.matvec(Qs, xf) + q_diag * xf)
+        draw = truncated_normal_rv(key, cond_mean, s, lo, hi, shape=cond_mean.shape)
+        xf = torch.where(colors == c, draw, xf)
+    return xf.reshape(shape_in)
+
+
+def sample_truncated_normal_rejection(key: Key, mu, Q=None, L=None, lower=None, upper=None, n: int = 1,
+                                      max_iter: int = 1000, batch_shape=()) -> torch.Tensor:
+    """Masked rejection sampling of a box-truncated MVN: every round redraws the
+    columns not yet inside the box, until all are or ``max_iter`` rounds have
+    run (draws as :func:`sample_normal`). The stopping test reads one flag back
+    from the device per round: this runs at prior initialisation, never in the
+    sweep loop."""
+    chol = _as_chol(Q, L)
+    mu = torch.as_tensor(mu)
+    p = st.dim(chol)
+    like = mu if mu.dtype.is_floating_point else mu.to(torch.float32)
+    lo = _bound_column(lower, p, -math.inf, like)
+    hi = _bound_column(upper, p, math.inf, like)
+
+    def in_box(samples):
+        return torch.all((samples >= lo) & (samples <= hi), dim=-2)
+
+    samples = sample_normal(key, mu, L=chol, n=n, batch_shape=batch_shape)
+    accepted = in_box(samples)
+    for _ in range(max_iter):
+        if bool(torch.all(accepted)):
+            break
+        fresh = sample_normal(key, mu, L=chol, n=n, batch_shape=batch_shape)
+        samples = torch.where(accepted[..., None, :], samples, fresh)
+        accepted = in_box(samples)
+    return samples
+
+
+def sample_truncated_normal(key: Key, mu, Q=None, L=None, lower=None, upper=None, n: int = 1,
+                            method: str = "Gibbs", n_sweeps: int = 10, init_max_iter: int = 100,
+                            schedule: str = "auto", batch_shape=()) -> torch.Tensor:
+    """A box-truncated MVN draw, (..., p, n).
+
+    ``method="Gibbs"``: each column starts from an exact rejection draw (bounded
+    at ``init_max_iter`` rounds; a column never accepted starts from mu clipped
+    into the box) and runs ``n_sweeps`` Gibbs sweeps, each column its own chain.
+    ``schedule="auto"`` takes the red-black sweep for a banded or diagonal Q.
+    ``method="Rejection"``: masked rejection sampling alone."""
+    if method == "Rejection":
+        return sample_truncated_normal_rejection(key, mu, Q=Q, L=L, lower=lower, upper=upper, n=n,
+                                                 batch_shape=batch_shape)
+    if method != "Gibbs":
+        raise TypeError("method should be either Gibbs or Rejection")
+    if Q is None:
+        raise ValueError("Gibbs truncated sampling requires the precision Q")
+    Qs = st.as_structured(Q)
+    mu = torch.as_tensor(mu)
+    p = st.dim(Qs)
+    mu_col = (mu if mu.dim() >= 2 else mu.reshape(p, -1))[..., :1]
+    b = st.matvec(Qs, mu_col)
+    lo = _bound_column(lower, p, -math.inf, mu_col)
+    hi = _bound_column(upper, p, math.inf, mu_col)
+    x0_clip = torch.clamp(mu_col, lo, hi)
+    x0_clip = torch.where(torch.isfinite(x0_clip), x0_clip, torch.zeros_like(x0_clip))
+    init = sample_truncated_normal_rejection(key, mu_col, Q=Qs, L=L, lower=lower, upper=upper, n=n,
+                                             max_iter=init_max_iter, batch_shape=batch_shape)
+    accepted = torch.all((init >= lo) & (init <= hi), dim=-2, keepdim=True)
+    x = torch.where(accepted, init, x0_clip)
+    if schedule == "auto":
+        schedule = "red_black" if isinstance(Qs, (st.Banded, st.Diagonal)) else "lex"
+    for _ in range(n_sweeps):
+        x = gibbs_canonical_truncated_normal(key, b, Qs, x, lower=lower, upper=upper, schedule=schedule)
+    return x

@@ -15,8 +15,9 @@ copies. A 1-D vector (p,) is unbatched.
 Banded recurrences (Cholesky, solves) run as Python loops over rows, vectorised
 over the batch: the JAX package's associative scans are a TPU device-program
 concern, and the hot tridiagonal draw of the generic driver goes to kernel K3
-(:mod:`openmcmc_tpu_torch.linalg.tridiag`) instead. ``Permuted`` and ``BlockBand``
-come with the Thomas smoother (ROADMAP.md queue 1: Thomas smoother);
+(:mod:`openmcmc_tpu_torch.linalg.tridiag`) instead. ``Permuted``, ``BlockBand``
+and ``from_sparse`` are not ported yet (ROADMAP.md queue 1: sparse and permuted
+priors);
 ``linalg/smallmat.py`` is a TPU workaround and is not ported. Matrix products run
 at full fp32: the package sets ``torch.set_float32_matmul_precision("highest")``.
 """

@@ -9,19 +9,21 @@ for the CPU: a CUDA run stays on the card.
 Engines: ``engine="generic"`` (the default) runs the samplers sweep by sweep,
 all chains batched, in a Python loop (the JAX package's ``lax.scan``); on the
 flagship smoother each NormalNormal step is one launch of kernel K3.
-``"auto"`` runs the fused engine the dispatcher matches (the spectral smoother,
-kernel K1) and falls back to the generic driver when none matches, as in the
-JAX package; ``"fused"`` requires a match.
+``"auto"`` runs the fused engine the dispatcher matches and falls back to the
+generic driver when none matches, as in the JAX package; ``"fused"`` requires a
+match. The fused engines so far: ``fused_smoother_spectral`` (kernel K1),
+``fused_gmrf_smoother`` (a tridiagonal prior with p > 1024) and
+``fused_gmrf_smoother_truncated`` (a box-truncated latent prior), both kernel K4.
 
 Randomness: the generic driver draws from one ``torch.Generator`` on the device,
 seeded from ``seed`` (torch draws: Gamma variates, prior init, non-tridiagonal
-Normal noise), and K3 from Philox keyed by ``seed & 0x7FFFFFFF`` with a call
+Normal noise, truncated-normal uniforms), and K3 from Philox keyed by ``seed & 0x7FFFFFFF`` with a call
 counter per (sweep, sampler). The streams differ from the JAX package's
 threefry ones; its draws agree in distribution.
 
 Not ported yet: ``run(resume=...)``, ``run_chunked`` and progress callbacks
 (ROADMAP.md queue 1: operations), and a float64 mode in place of
-``jax.enable_x64`` (state is float32; ROADMAP.md queue 1 item 2, deferred).
+``jax.enable_x64`` (state is float32; ROADMAP.md queue 1: operations).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def _coerce_state(state: dict, device="cuda") -> dict:
     Structured matrices pass through (as float32 on ``device``); integer arrays
     become int32, everything else float32; a scalar becomes (1, 1) and a vector
     (p, 1). A scipy.sparse entry raises: its RCM-permuted banded form is not
-    ported yet (ROADMAP.md queue 1: Thomas smoother)."""
+    ported yet (ROADMAP.md queue 1: sparse and permuted priors)."""
     device = torch.device(device)
     out = {}
     for name, value in state.items():
@@ -58,7 +60,7 @@ def _coerce_state(state: dict, device="cuda") -> dict:
         if sparse is not None and sparse.issparse(value):
             raise NotImplementedError(
                 f"state[{name!r}]: scipy.sparse entries are not ported yet "
-                "(ROADMAP.md queue 1: Thomas smoother)"
+                "(ROADMAP.md queue 1: sparse and permuted priors)"
             )
         t = value if torch.is_tensor(value) else torch.as_tensor(np.array(value))
         if t.dtype.is_floating_point or t.dtype == torch.bool:

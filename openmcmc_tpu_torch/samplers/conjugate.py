@@ -4,10 +4,12 @@ Ported so far: :class:`NormalNormal` and :class:`NormalGamma` with their JAX
 structural checks and their ``step`` on chain-batched state (per-chain entries
 (chains, p, n), data (p, n), broadcast). NormalNormal keeps the conditional
 precision structured, so a banded GMRF prior plus a diagonal likelihood stays
-tridiagonal and its draw is one launch of kernel K3. Not ported yet, and raising
-with their ROADMAP.md item: the LinearCombination and mixture likelihood means
-(queue 1: linear regression; mixture), the truncated prior (queue 1: Thomas
-smoother) and ``MixtureAllocation`` (queue 1: mixture).
+tridiagonal and its draw is one launch of kernel K3; a box-truncated prior takes
+one red-black truncated Gibbs sweep over the current value instead. Not ported
+yet, and raising with their ROADMAP.md item: the LinearCombination and mixture
+likelihood means (queue 1: linear regression; mixture), the lexicographic
+truncated sweep a non-banded precision needs (queue 1: sparse and permuted
+priors) and ``MixtureAllocation`` (queue 1: mixture).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ class NormalNormal(Sampler):
     """Gaussian prior x Gaussian likelihood(s) with linear mean dependence.
 
     Conditional: Q = P + sum_k n_k W_k ; b = P m + sum_k W_k sum_cols(y_k); draw
-    from N(Q^-1 b, Q^-1) by the canonical sampler."""
+    from N(Q^-1 b, Q^-1) by the canonical sampler, or take one truncated Gibbs
+    sweep of it when the prior has domain limits."""
 
     def __init__(self, param: str, model: Model):
         super().__init__(param, model)
@@ -38,10 +41,6 @@ class NormalNormal(Sampler):
 
     def step(self, key, state: dict, stats: dict, adapt: bool = False) -> Tuple[dict, dict]:
         param = self.param
-        if self.model[param].truncated:
-            raise NotImplementedError(
-                "NormalNormal with a truncated prior is not ported yet (ROADMAP.md queue 1: Thomas smoother)"
-            )
         Q = None
         x = state[param]
         b = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
@@ -61,7 +60,14 @@ class NormalNormal(Sampler):
             Q_dist = st.scale(float(n_obs), Q_rsp)
             b = b + st.matvec(Q_rsp, torch.sum(state[key_r], dim=-1, keepdim=True))
             Q = Q_dist if Q is None else st.add(Q, Q_dist)
-        new_value = gmrf.sample_normal_canonical(key, b, Q=Q)
+        prior = self.model[param]
+        if not prior.truncated:
+            new_value = gmrf.sample_normal_canonical(key, b, Q=Q)
+        else:
+            # the chromatic sweep conditions on the current x: bw + 1 colour updates
+            lo, hi = prior._bounds(x.device)
+            schedule = "red_black" if isinstance(Q, (st.Banded, st.Diagonal)) else "lex"
+            new_value = gmrf.gibbs_canonical_truncated_normal(key, b, Q, x, lower=lo, upper=hi, schedule=schedule)
         new_state = dict(state)
         new_state[param] = new_value.reshape(x.shape)
         return new_state, stats

@@ -128,3 +128,103 @@ def test_generic_run_launches_k3_once_per_sweep(dev):
     assert tridiag.sample_canonical_tridiag_kernel.launches == before + 16
     assert res.store["b"].device.type == "cuda" and tuple(res.store["b"].shape) == (64, 5, p, 1)
     assert all(bool(torch.all(torch.isfinite(v))) for v in (*res.store.values(), res.log_post))
+
+
+def test_truncnorm_draws_kernel_matches_plain(dev):
+    """erf_poly and truncnorm_draw on the card against their plain versions: open
+    (+-1e30), one-sided and narrow boxes; rtol 1e-6, atol 1e-6."""
+    from openmcmc_tpu_torch.fused import prng
+
+    gen = torch.Generator().manual_seed(1)
+    n = 4096
+    ctr = torch.randint(0, 2**31 - 1, (n, 4), dtype=torch.int32, generator=gen)
+    x = 3.0 * torch.randn((n, 4), generator=gen)
+    x[0] = torch.tensor([1e30, -1e30, 0.0, 40.0])
+    mu = torch.randn((n, 4), generator=gen)
+    scale = torch.rand((n, 4), generator=gen) + 0.1
+    lo = torch.tensor([0.0, -1e30, 1.0, -1e30]).expand(n, 4).contiguous()
+    hi = torch.tensor([1.2, 0.5, 1.001, 1e30]).expand(n, 4).contiguous()
+    args = [t.to(dev) for t in (x, mu, scale, lo, hi)]
+    before = prng.truncnorm_draws.launches
+    got = prng.truncnorm_draws(3, ctr.to(dev), *args)
+    want = prng.truncnorm_draws_plain(3, ctr.to(dev), *args)
+    torch.cuda.synchronize()
+    assert prng.truncnorm_draws.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    assert bool(torch.all((got[1] >= args[3]) & (got[1] <= args[4])))
+
+
+def _k4_inputs(dev, n_chains, p, truncated):
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs
+
+    rng = np.random.default_rng(p)
+    s = np.cumsum(rng.uniform(0.2, 1.0, p))
+    y = np.sin(s / 5.0) + rng.normal(0.0, 0.5, p)
+    box = dict(lower=-0.3, upper=np.full(p, 1.0)) if truncated else {}
+    prep = gs.prepare(y, s, noise_diag=rng.uniform(0.5, 2.0, p), mu0=0.1 * rng.normal(size=p), device=dev, **box)
+    f32 = dict(dtype=torch.float32, device=dev)
+    args = [prep[k] for k in ("p0d", "p0c", "y", "d", "mu", "p0mu")]
+    args += [torch.full((n_chains,), 20.0, **f32), torch.full((n_chains,), 1.0, **f32)]
+    kw = dict(logdet_p0=prep["logdet_p0"], logdet_d=prep["logdet_d"], a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0)
+    if truncated:
+        kw.update(lo=prep["lo"], hi=prep["hi"], b_init=prep["b_init"].expand(n_chains, p).contiguous())
+    return args, kw
+
+
+@pytest.mark.parametrize("truncated", [False, True], ids=["thomas", "truncated"])
+@pytest.mark.parametrize("n_chains,p", [(64, 12), (1000, 1031)], ids=["small", "ragged"])
+def test_gmrf_smoother_kernel_matches_plain(dev, truncated, n_chains, p):
+    """K4 against its plain version on the same Philox bits, n_burn 3, n_keep 4,
+    n_thin 2; b, lam, tau rtol 1e-4 atol 1e-5, log_post 1e-4 relative."""
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs
+
+    args, kw = _k4_inputs(dev, n_chains, p, truncated)
+    kw.update(n_burn=3, n_keep=4, n_thin=2)
+    before = gs.gmrf_smoother_kernel.launches
+    got = gs.gmrf_smoother(13, *args, **kw)
+    want = gs.gmrf_smoother_plain(13, *args, **kw)
+    torch.cuda.synchronize()
+    assert gs.gmrf_smoother_kernel.launches == before + 1
+    for name in ("b", "lam", "tau"):
+        torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
+    assert torch.all(torch.abs(got["log_post"] - want["log_post"])
+                     <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
+
+
+def test_truncated_auto_run_launches_k4_once(dev):
+    """MCMC.run(engine="auto") on a box-truncated smoother: engine
+    fused_gmrf_smoother_truncated, one K4 launch, every draw in the box."""
+    from openmcmc_tpu_torch import MCMC, Model
+    from openmcmc_tpu_torch.distributions import Gamma, Normal
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs
+    from openmcmc_tpu_torch.linalg import gmrf, structured as st
+    from openmcmc_tpu_torch.parameters import ScaledMatrix
+    from openmcmc_tpu_torch.samplers import NormalGamma, NormalNormal
+
+    p = 50
+    s = np.linspace(0.0, 60.0, p)
+    bands = gmrf.precision_irregular(s).bands.clone()
+    bands[0, 0] += 1e-3
+    y = np.sin(s / 20.0) + 2.0 * np.cos(s / 12.0) + 2.0 + np.random.default_rng(0).normal(size=p)
+    mdl = Model([
+        Normal("y", mean="b", precision=ScaledMatrix("P_tau", "tau")),
+        Normal("b", mean="mu", precision=ScaledMatrix("P_lambda", "lambda"), domain_response_lower=0.0,
+               domain_response_upper=3.5),
+        Gamma("lambda", shape="a_lam", rate="b_lam"),
+        Gamma("tau", shape="a_tau", rate="b_tau"),
+    ])
+    state = {"y": y, "b": np.clip(y, 1e-3, 3.5 - 1e-3), "mu": np.zeros(p), "lambda": 100.0,
+             "P_lambda": st.Banded(bands), "a_lam": 10.0, "b_lam": 1.0, "tau": 1.0,
+             "P_tau": st.Diagonal(torch.ones(p)), "a_tau": 1.0, "b_tau": 1.0}
+    mcmc = MCMC(state, [NormalNormal("b", mdl), NormalGamma("lambda", mdl), NormalGamma("tau", mdl)], mdl,
+                n_burn=10, n_iter=20, n_chains=96, seed=3)
+    before = gs.gmrf_smoother_kernel.launches
+    res = mcmc.run(engine="auto")
+    torch.cuda.synchronize()
+    assert res.engine == "fused_gmrf_smoother_truncated"
+    assert gs.gmrf_smoother_kernel.launches == before + 1
+    b = res.store["b"]
+    assert b.device.type == "cuda" and tuple(b.shape) == (96, 20, p, 1)
+    assert float(b.min()) >= 0.0 and float(b.max()) <= 3.5
+    assert bool(torch.all(torch.isfinite(res.log_post)))

@@ -154,8 +154,9 @@ def test_rhat_and_summary_match_jax():
 
 def test_unported_routes_raise():
     """run() runs the generic driver; "auto" without a matching engine falls back
-    to it, as in the JAX package; "fused" without a match, resume and the routes
-    to the Thomas kernel K4 (a truncated latent prior) still raise."""
+    to it, as in the JAX package; "fused" without a match and resume still raise;
+    a truncated latent prior now dispatches to the Thomas kernel K4's truncated
+    variant, as in the JAX package."""
     from openmcmc_tpu_torch.convert import state_from_reference
     from openmcmc_tpu_torch.distributions import Normal
 
@@ -178,5 +179,6 @@ def test_unported_routes_raise():
         mcmc.run(engine="fused")
     mcmc.data["P_tau"] = p_tau
     mcmc.model["b"] = Normal("b", mean="mu", precision=mcmc.model["b"].precision, domain_response_lower=0.0)
-    with pytest.raises(NotImplementedError, match="K4"):
-        mcmc.run(engine="auto")
+    res = mcmc.run(engine="auto")
+    assert res.engine == "fused_gmrf_smoother_truncated" and tuple(res.store["b"].shape) == (8, 5, P, 1)
+    assert float(res.store["b"].min()) >= 0.0
