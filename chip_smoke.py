@@ -23,6 +23,18 @@ version and, in posterior means, against the generic driver:
 - ``thomas_long``: the flagship model at p = 4096 (0.6 s spacing, 4096 chains,
   200 burn-in and 100 stored sweeps), engine ``fused_gmrf_smoother``.
 
+Then linear regression, each configuration through ``MCMC.run(engine="auto")``
+with one launch of its kernel, that kernel held against its plain version on a
+short run at full width, and its posterior means of beta, tau and log lambda
+held against the generic driver's (the dense NormalNormal step, no kernel):
+
+- ``linreg``: the reference's example 3 as bench_all.py builds it (N = 100,
+  p = 2, Gamma(1e-3, 1e-3) scales, 4096 chains, 1000 burn-in and 1000 stored
+  sweeps), engine ``fused_linreg``, the unrolled-Cholesky kernel (K6);
+- ``linreg_wide``: the spectral engine at its limit (N = 2048, p = 256,
+  Gamma(1, 1) scales, 4096 chains, 200 burn-in and 500 stored sweeps), engine
+  ``fused_linreg_spectral``, the spectral linear-regression kernel (K5).
+
 Each path runs with every launch count set to 0 just before it and read just
 after. The kernels are timed against their plain versions with CUDA events,
 beside the least time the card could take for the same work (``bound_ms``).
@@ -54,12 +66,21 @@ REPLACES = {
     "tridiag_canonical": "openmcmc_tpu/linalg/pallas_tridiag.py:43",
     "gmrf_smoother": "openmcmc_tpu/fused/gmrf_smoother.py:58",
     "truncnorm_draws": "openmcmc_tpu/fused/prng.py:339",
+    "linreg": "openmcmc_tpu/fused/linreg.py:50",
+    "spectral_linreg": "openmcmc_tpu/fused/spectral.py:94",
 }
 # the K4 cells: bench_all.py's truncated_smoother (bench_all.py:468, :762) and the
 # flagship model past the spectral engine's tridiagonal limit (p > 1024)
 T_CHAINS, T_BURN, T_ITER, T_SEED, T_BOX = 4096, 100, 250, 0, (0.0, 3.5)
 L_P, L_CHAINS, L_BURN, L_ITER = 4096, 4096, 200, 100
 L_GEN_BURN, L_GEN_ITER = 50, 100  # thomas_long's generic (K3) run: exact redraws need little burn-in
+# the linear-regression cells: example 3 (bench_all.py:97-117, fused row :564-570)
+# and the spectral engine at p = 256; their generic twins run fewer sweeps (and,
+# at p = 256, fewer chains: the dense step factors a 256 x 256 matrix per chain)
+R_N, R_CHAINS, R_BURN, R_ITER, R_SEED = 100, 4096, 1000, 1000, 3
+R_GEN_BURN, R_GEN_ITER = 200, 300
+W_N, W_P, W_CHAINS, W_BURN, W_ITER, W_SEED = 2048, 256, 4096, 200, 500, 7
+W_GEN_CHAINS, W_GEN_BURN, W_GEN_ITER = 256, 50, 150
 # H100 SXM data sheet: HBM bandwidth and the float32 rate outside the tensor cores
 # (TF32 is excluded: the port keeps full float32, ROADMAP.md's invariant)
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
@@ -75,6 +96,21 @@ K4_FLOP_PER_TRUNC_ROW = 105  # truncated draw 92 (its erf pair 36, inverse erf 2
 K4_FLOP_PER_SWEEP = 100      # the lam and the tau Gamma draw, one Marsaglia-Tsang round each, and the rates
 K4_FLOP_PER_STORE = 30       # the analytic log posterior
 K2T_FLOP_PER_ROW = 380       # csrc/prng_draws.cu truncnorm_draws: 4 erf_poly (17 each) and 4 truncated draws (78 each)
+K6_FLOP_PER_NORMAL = 30      # csrc/linreg.cu: one inverse-CDF normal per coefficient
+K6_FLOP_PER_SWEEP = 100      # the tau and the lam Gamma draw, one Marsaglia-Tsang round each, and the rates
+K6_FLOP_PER_STORE = 30       # the analytic log posterior
+K5_FLOP_PER_COORD = 47       # csrc/spectral_linreg.cu: inverse-CDF normal 30, w draw 9, the three sums 8
+K5_FLOP_PER_SWEEP = 110      # the (tau, lam) Gamma pair, one round each, the rates and q_tau
+K5_FLOP_PER_STORE = 30       # the analytic log posterior; the store adds 2 p^2 for beta = V w
+
+
+def k6_flop_per_sweep(p):
+    """K6's float32 operations per chain and sweep, counted from csrc/linreg.cu:
+    the normals, the unrolled Cholesky, both triangular solves, the two
+    quadratic forms and the Gamma draws."""
+    chol = sum(4 + 2 * j + (p - 1 - j) * (2 + 2 * j) for j in range(p))
+    solves = sum(4 + 2 * i for i in range(p)) + sum(2 + 2 * (p - 1 - i) for i in range(p))
+    return K6_FLOP_PER_NORMAL * p + chol + solves + (3 + 3 * p) * p + 4 * p + K6_FLOP_PER_SWEEP
 
 
 def bound(n_bytes, n_flop):
@@ -193,11 +229,11 @@ def kernel_inputs(dev, y, P0, n_chains, noise=None, mu0=None, logdet_p0=None, la
     return args, kw
 
 
-def compare(got, want):
+def compare(got, want, draw="b"):
     """Per-chain agreement of two engine outputs; returns (agreeing chains, max abs err)."""
     ok = torch.ones(got["lam"].shape[0], dtype=torch.bool, device=got["lam"].device)
     err = 0.0
-    for name in ("b", "lam", "tau"):
+    for name in (draw, "lam", "tau"):
         g, w = got[name], want[name]
         close = torch.isclose(g, w, rtol=1e-4, atol=1e-5).reshape(g.shape[0], -1).all(1)
         ok &= close
@@ -268,12 +304,13 @@ def build_mcmc(dev, n_chains=None):
 
 
 def _wrappers():
-    from openmcmc_tpu_torch.fused import gmrf_smoother, prng, spectral
+    from openmcmc_tpu_torch.fused import gmrf_smoother, linreg, prng, spectral
     from openmcmc_tpu_torch.linalg import tridiag
 
     return {"spectral_smoother": spectral.smoother_sweeps_kernel, "prng_draws": prng.draws,
             "tridiag_canonical": tridiag.sample_canonical_tridiag_kernel,
-            "gmrf_smoother": gmrf_smoother.gmrf_smoother_kernel, "truncnorm_draws": prng.truncnorm_draws}
+            "gmrf_smoother": gmrf_smoother.gmrf_smoother_kernel, "truncnorm_draws": prng.truncnorm_draws,
+            "linreg": linreg.linreg_sweeps_kernel, "spectral_linreg": spectral.spectral_linreg_sweeps_kernel}
 
 
 def reset_launches():
@@ -309,17 +346,22 @@ def check_store(res, path):
     return tau_mean
 
 
-def posterior_moments(res, chunk_size=8):
-    """Per coordinate of b, lambda and tau: posterior mean, sd and multi-chain ESS."""
+def moments(draws, chunk_size=8):
+    """Per coordinate of each (chains, n_iter, dims) tensor: posterior mean, sd
+    and multi-chain ESS."""
     from openmcmc_tpu_torch.diagnostics import ess_per_param
 
     out = {}
-    for name in ("b", "lambda", "tau"):
-        d = res.store[name][..., 0]  # (chains, n_iter, dims)
+    for name, d in draws.items():
         mean = torch.mean(d, dim=(0, 1), dtype=torch.float64)
         sd = torch.sqrt(torch.clamp(torch.mean(d * d, dim=(0, 1), dtype=torch.float64) - mean * mean, min=0.0))
         out[name] = (mean, sd, ess_per_param(d, chunk_size=chunk_size).double())
     return out
+
+
+def posterior_moments(res, chunk_size=8):
+    """Per coordinate of b, lambda and tau: posterior mean, sd and multi-chain ESS."""
+    return moments({name: res.store[name][..., 0] for name in ("b", "lambda", "tau")}, chunk_size)
 
 
 def moments_z(moments, reference):
@@ -835,6 +877,215 @@ def thomas_long_phase(dev, smi):
     return {"launches": launches["gmrf_smoother"], "max_abs_err": err, **entry}
 
 
+def linreg_mcmc(dev, X, y, n_chains, n_burn, n_iter, seed, a, b):
+    """Reference example 3's model in the port: y ~ N(X beta, (tau I)^-1),
+    beta ~ N(0, (lambda I)^-1), Gamma(a, b) on tau and lambda, tau0 = 1,
+    lambda0 = 0.01."""
+    from openmcmc_tpu_torch import MCMC, Model
+    from openmcmc_tpu_torch.distributions import Gamma, Normal
+    from openmcmc_tpu_torch.linalg import structured as st
+    from openmcmc_tpu_torch.parameters import LinearCombination, ScaledMatrix
+    from openmcmc_tpu_torch.samplers import NormalGamma, NormalNormal
+
+    N, p = X.shape
+    mdl = Model([
+        Normal("y", mean=LinearCombination(form={"beta": "X"}), precision=ScaledMatrix("P_tau", "tau")),
+        Normal("beta", mean="mu", precision=ScaledMatrix("P_lambda", "lambda")),
+        Gamma("tau", shape="a_tau", rate="b_tau"),
+        Gamma("lambda", shape="a_lambda", rate="b_lambda"),
+    ])
+    state = {"y": y, "X": X, "beta": np.zeros(p), "P_tau": st.Diagonal(torch.ones(N)), "tau": 1.0,
+             "P_lambda": st.Diagonal(torch.ones(p)), "mu": np.zeros(p), "lambda": 0.01,
+             "a_tau": a, "b_tau": b, "a_lambda": a, "b_lambda": b}
+    samplers = [NormalNormal("beta", mdl), NormalGamma("tau", mdl), NormalGamma("lambda", mdl)]
+    return MCMC(state, samplers, mdl, n_burn=n_burn, n_iter=n_iter, n_chains=n_chains, seed=seed, device=dev)
+
+
+def example3_data():
+    """bench_all.py's linreg data: x sorted uniform, X = [1, x], y = X [2, 0.5] + N(0, 0.1^2)."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.random(R_N))
+    X = np.stack([np.ones(R_N), x], 1)
+    return X, X @ np.array([2.0, 0.5]) + rng.normal(0.0, 0.1, R_N)
+
+
+def wide_data():
+    """X iid N(0, 1) (N = 2048, p = 256), beta_true ~ N(0, 1), y = X beta_true + N(0, 0.5^2)."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(W_N, W_P))
+    beta = rng.normal(size=W_P)
+    return X, X @ beta + rng.normal(0.0, 0.5, W_N)
+
+
+def linreg_moments(res, chunk_size):
+    """Posterior mean, sd and ESS of each beta, tau and log lambda (lambda's
+    posterior is heavy-tailed when its conditional shape is near 1)."""
+    return moments({"beta": res.store["beta"][..., 0], "tau": res.store["tau"][..., 0],
+                    "log_lambda": torch.log(res.store["lambda"][..., 0])}, chunk_size)
+
+
+def linreg_cell(tag, mcmc, engine, kernel):
+    """One linear-regression cell's run: MCMC.run(engine="auto") with the counts
+    at 0 around it, one launch of ``kernel`` and no other, the store's shape and
+    finiteness."""
+    n_chains, n_iter, p = mcmc.n_chains, mcmc.n_iter, mcmc.data["X"].shape[1]
+    reset_launches()
+    t0 = time.perf_counter()
+    res = mcmc.run(engine="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if res.engine != engine or launches != only(kernel, 1):
+        raise AssertionError(f"{tag}: engine {res.engine}, kernel launches {launches}")
+    shapes = {"beta": (n_chains, n_iter, p, 1), "tau": (n_chains, n_iter, 1, 1), "lambda": (n_chains, n_iter, 1, 1)}
+    if {k: tuple(v.shape) for k, v in res.store.items()} != shapes or tuple(res.log_post.shape) != (n_chains, n_iter):
+        raise AssertionError(f"{tag}: store {[tuple(v.shape) for v in res.store.values()]}")
+    for name, v in (*res.store.items(), ("log_post", res.log_post)):
+        if not bool(torch.all(torch.isfinite(v))) or v.device.type != DEVICE_TYPE:
+            raise AssertionError(f"{tag}: non-finite values in {name}, or not on the card")
+    log(tag, f"MCMC.run(engine='auto'): engine {res.engine}, kernel launches {launches}, beta "
+        f"{tuple(res.store['beta'].shape)}, first run {wall:.3f} s; tau posterior mean "
+        f"{float(res.store['tau'].mean()):.4f}")
+    return res, launches
+
+
+def linreg_checks(tag, mcmc, res, kernel_fn, plain_fn, args, kw, short, gen_mcmc, chunk_size):
+    """The kernel against its plain version on a short run at full width
+    (>= 99.9 % of chains agree), and the fused run's posterior means of beta,
+    tau and log lambda against the generic twin's (within 5 MC sd), which
+    launches no kernel (the dense NormalNormal step)."""
+    fused = linreg_moments(res, chunk_size)
+    ess_beta = float(fused["beta"][2].mean())
+    del res
+    torch.cuda.empty_cache()
+    got = kernel_fn(mcmc.seed, *args, **kw, **short)
+    want, plain_ms = cuda_call_ms(lambda: plain_fn(mcmc.seed, *args, **kw, **short))
+    agree, err = compare(got, want, draw="beta")
+    del got, want
+    n_chains = mcmc.n_chains
+    if agree < 0.999 * n_chains:
+        raise AssertionError(f"{tag}: only {agree} of {n_chains} chains agree with the plain version")
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = gen_mcmc.run()
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = read_launches()
+    if gen.engine != "generic" or any(gen_launches.values()):
+        raise AssertionError(f"{tag}: the generic twin ran {gen.engine} with kernel launches {gen_launches}")
+    z = moments_z(fused, linreg_moments(gen, chunk_size))
+    del gen
+    torch.cuda.empty_cache()
+    if not z < 5.0:
+        raise AssertionError(f"{tag}: posterior means off the generic run's by {z:.2f} MC sd")
+    log(tag, f"kernel and plain version agree on {agree} of {n_chains} chains at n_burn {short['n_burn']}, n_iter "
+        f"{short['n_keep']} (rtol 1e-4), max abs err {err:.3g}; means of beta, tau, log lambda within {z:.2f} MC sd "
+        f"of the generic run's (limit 5; generic run of {gen_mcmc.n_chains} chains, {gen_mcmc.n_burn} + "
+        f"{gen_mcmc.n_iter} sweeps, {gen_wall:.3f} s); mean ESS of beta {ess_beta:.1f} over "
+        f"{n_chains * mcmc.n_iter} draws")
+    return err, plain_ms, ess_beta
+
+
+def linreg_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n_in, ess_beta, plain_ms, reps):
+    """The kernel's time on the whole run and on the plain version's short run
+    (CUDA events, median of ``reps``), MCMC.run end to end, the bounds."""
+    n_chains, p = mcmc.n_chains, mcmc.data["X"].shape[1]
+
+    def bound_of(h):
+        n_sweeps, n_keep = h["n_burn"] + h["n_keep"] * h["n_thin"], h["n_keep"]
+        n_bytes = 4 * (n_in + 2 * n_chains + n_chains * n_keep * (p + 3))
+        n_flop = n_chains * flop_fn(n_sweeps, n_keep)
+        return (*bound(n_bytes, n_flop), n_flop, n_bytes)
+
+    run_ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, **run_hyp), reps)
+    # the same sweeps with one stored draw: the rest of run_ms is the stores' share
+    n_sweeps = run_hyp["n_burn"] + run_hyp["n_keep"] * run_hyp["n_thin"]
+    sweeps_ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, n_burn=n_sweeps - 1, n_keep=1, n_thin=1), reps)
+    ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, **short), reps)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = mcmc.run(engine="auto")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del res
+    e2e = statistics.median(walls)
+    run_bound = bound_of(run_hyp)
+    bound_ms, bound_by, n_flop, n_bytes = bound_of(short)
+    log(tag, f"{smi}: kernel {run_ms:.4f} ms for the whole run (median of {reps}), bound {run_bound[0]:.4f} ms "
+        f"({run_bound[1]}: {run_bound[2]:.3g} FLOP, {run_bound[3]:.3g} B); MCMC.run end to end {1e3 * e2e:.3f} ms "
+        f"(median of {reps}); the same {n_sweeps} sweeps with one stored draw {sweeps_ms:.4f} ms")
+    log(tag, f"{smi}: at n_burn {short['n_burn']}, n_iter {short['n_keep']}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms "
+        f"(the check's call), bound {bound_ms:.5f} ms ({bound_by}: {n_flop:.3g} FLOP, {n_bytes:.3g} B)")
+    log(tag, f"{smi}: ESS/s of beta {ess_beta / (run_ms / 1e3):.4g} on kernel time, {ess_beta / e2e:.4g} end to end")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "run_ms": run_ms, "run_bound_ms": run_bound[0], "run_bound_by": run_bound[1], "run_e2e_ms": 1e3 * e2e}
+
+
+def linreg_phase(dev, smi):
+    """Example 3: one K6 launch, K6 against its plain version on 20 + 30 sweeps at
+    full width, posterior means against the generic driver's, times."""
+    from openmcmc_tpu_torch.fused import linreg
+
+    tag = "linreg"
+    X, y = example3_data()
+    mcmc = linreg_mcmc(dev, X, y, R_CHAINS, R_BURN, R_ITER, R_SEED, 1e-3, 1e-3)
+    res, launches = linreg_cell(tag, mcmc, "fused_linreg", "linreg")
+    # K6's inputs as the dispatcher feeds them
+    p = X.shape[1]
+    Xd, yd = mcmc.data["X"], mcmc.data["y"][:, 0]
+    plam, ptau = mcmc.data["P_lambda"].diag_, mcmc.data["P_tau"].diag_
+    G, c, scal = linreg.sufficient_statistics(Xd, yd, plam, ptau)
+    f32 = dict(dtype=torch.float32, device=dev)
+    args = [G, c, plam, torch.zeros(p, **f32), scal, torch.full((R_CHAINS,), 0.01, **f32),
+            torch.full((R_CHAINS,), 1.0, **f32)]
+    kw = dict(n_obs=float(R_N), a_lam=1e-3, b_lam=1e-3, a_tau=1e-3, b_tau=1e-3)
+    short = dict(n_burn=20, n_keep=30, n_thin=1)
+    gen = linreg_mcmc(dev, X, y, R_CHAINS, R_GEN_BURN, R_GEN_ITER, R_SEED, 1e-3, 1e-3)
+    err, plain_ms, ess_beta = linreg_checks(tag, mcmc, res, linreg.linreg_sweeps_kernel,
+                                            linreg.linreg_sweeps_plain, args, kw, short, gen, chunk_size=8)
+
+    def flop(n_sweeps, n_keep):
+        return n_sweeps * k6_flop_per_sweep(p) + n_keep * K6_FLOP_PER_STORE
+
+    entry = linreg_times(smi, tag, mcmc, linreg.linreg_sweeps_kernel, args, kw,
+                         dict(n_burn=R_BURN, n_keep=R_ITER, n_thin=1), short, flop, p * p + 3 * p + 3, ess_beta,
+                         plain_ms, reps=5)
+    return {"launches": launches["linreg"], "max_abs_err": err, **entry}
+
+
+def linreg_wide_phase(dev, smi):
+    """p = 256: one K5 launch, K5 against its plain version on 2 + 3 sweeps at
+    full width, posterior means against a generic run of 256 chains, times."""
+    from openmcmc_tpu_torch.fused import spectral
+
+    tag = "linreg_wide"
+    X, y = wide_data()
+    mcmc = linreg_mcmc(dev, X, y, W_CHAINS, W_BURN, W_ITER, W_SEED, 1.0, 1.0)
+    res, launches = linreg_cell(tag, mcmc, "fused_linreg_spectral", "spectral_linreg")
+    # K5's inputs as the dispatcher feeds them
+    prep = spectral.prepare_linreg(mcmc.data["X"], mcmc.data["y"][:, 0], mu=np.zeros(W_P),
+                                   plam_diag=mcmc.data["P_lambda"].diag_, ptau_diag=mcmc.data["P_tau"].diag_)
+    f32 = dict(dtype=torch.float32, device=dev)
+    args = [torch.as_tensor(prep[k], **f32).contiguous() for k in ("V", "s", "wmu", "cv")]
+    args += [torch.full((W_CHAINS,), 0.01, **f32), torch.full((W_CHAINS,), 1.0, **f32)]
+    kw = {k: float(np.float32(prep[k])) for k in ("yPy", "logdet_plam", "logdet_ptau")}
+    kw.update(n_obs=float(W_N), a_lam=1.0, b_lam=1.0, a_tau=1.0, b_tau=1.0)
+    short = dict(n_burn=2, n_keep=3, n_thin=1)
+    gen = linreg_mcmc(dev, X, y, W_GEN_CHAINS, W_GEN_BURN, W_GEN_ITER, W_SEED, 1.0, 1.0)
+    err, plain_ms, ess_beta = linreg_checks(tag, mcmc, res, spectral.spectral_linreg_sweeps_kernel,
+                                            spectral.spectral_linreg_sweeps_plain, args, kw, short, gen,
+                                            chunk_size=32)
+
+    def flop(n_sweeps, n_keep):
+        return n_sweeps * (K5_FLOP_PER_COORD * W_P + K5_FLOP_PER_SWEEP) + n_keep * (2 * W_P * W_P + K5_FLOP_PER_STORE)
+
+    entry = linreg_times(smi, tag, mcmc, spectral.spectral_linreg_sweeps_kernel, args, kw,
+                         dict(n_burn=W_BURN, n_keep=W_ITER, n_thin=1), short, flop, W_P * W_P + 3 * W_P, ess_beta,
+                         plain_ms, reps=3)
+    return {"launches": launches["spectral_linreg"], "max_abs_err": err, **entry}
+
+
 def main():
     smi = device_phase()
     dev = torch.device("cuda", 0)
@@ -854,6 +1105,9 @@ def main():
     k4_err = gmrf_small_phase(dev)
     k4_trunc, k4_trunc_launches = truncated_phase(dev, smi)
     k4_long = thomas_long_phase(dev, smi)
+    k6 = linreg_phase(dev, smi)
+    torch.cuda.empty_cache()
+    k5 = linreg_wide_phase(dev, smi)
     k4 = {"route": "cuda", "source": "openmcmc_tpu_torch/csrc/gmrf_smoother.cu", "replaces": REPLACES["gmrf_smoother"]}
     kernels = [
         {"name": "spectral_smoother", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/spectral_smoother.cu",
@@ -864,6 +1118,10 @@ def main():
         {"name": "gmrf_smoother_truncated", **k4, **k4_trunc,
          "max_abs_err": max(k4_trunc["max_abs_err"], k4_err)},
         {"name": "gmrf_smoother_thomas", **k4, **k4_long, "max_abs_err": max(k4_long["max_abs_err"], k4_err)},
+        {"name": "linreg", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/linreg.cu",
+         "replaces": REPLACES["linreg"], **k6},
+        {"name": "spectral_linreg", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/spectral_linreg.cu",
+         "replaces": REPLACES["spectral_linreg"], **k5},
     ]
     # prng_draws and truncnorm_draws are not launched by any path: their device
     # functions run inlined in the smoother kernels, and these kernels only

@@ -6,8 +6,11 @@ GMRF smoother family: the model layer, the generic driver, ``MCMC.run(engine=
 (``csrc/spectral_smoother.cu``) and the Thomas-scan smoother with its
 box-truncated variant (``csrc/gmrf_smoother.cu``), the in-kernel Philox
 random-number layer (``csrc/philox.cuh``, ``csrc/prng.cuh``), and multi-chain
-diagnostics. Everything off that
-path raises ``NotImplementedError`` naming its ROADMAP.md item.
+diagnostics; and Bayesian linear regression: ``LinearCombination`` means, the
+generic driver's dense conjugate step, and the fused engines with an unrolled
+Cholesky (``csrc/linreg.cu``, p <= 16) and in eigencoordinates
+(``csrc/spectral_linreg.cu``, p <= 256). Everything off those paths raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 Importing the package sets the full-fp32 matmul invariant once: no TF32 anywhere,
 matching the JAX package's ``Precision.HIGHEST`` pinning.

@@ -30,8 +30,9 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gmrf_smoother.cu", "prng_draws.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
-HEADERS = ("layout.cuh", "philox.cuh", "prng.cuh")
+SOURCES = ("gmrf_smoother.cu", "linreg.cu", "prng_draws.cu", "spectral_linreg.cu", "spectral_smoother.cu",
+           "tridiag_canonical.cu")
+HEADERS = ("layout.cuh", "philox.cuh", "prng.cuh", "spectral_store.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -118,6 +119,10 @@ def library() -> ctypes.CDLL:
     lib.gmrf_smoother_launch.restype = ctypes.c_int
     lib.truncnorm_draws_launch.argtypes = [ctypes.c_uint32] + [_P] * 8 + [ctypes.c_int, _P]
     lib.truncnorm_draws_launch.restype = ctypes.c_int
+    lib.linreg_launch.argtypes = [_P] * 13
+    lib.linreg_launch.restype = ctypes.c_int
+    lib.spectral_linreg_launch.argtypes = [_P] * 12
+    lib.spectral_linreg_launch.restype = ctypes.c_int
     return lib
 
 

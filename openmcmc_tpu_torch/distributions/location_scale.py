@@ -1,12 +1,14 @@
 """Location-scale distributions (port of ``openmcmc_tpu/distributions/location_scale.py``).
 
-Ported so far: :class:`Normal` in precision form with an Identity mean and an
-Identity or ScaledMatrix precision: its density and its draw, box-truncated or
-not. A truncated Normal keeps the reference's unrenormalised density (-inf
-outside the box) and draws by rejection-initialised red-black Gibbs;
-``n_active`` waits for reversible jump (ROADMAP.md queue 1: reversible jump).
-Entries may carry leading chain axes: state[name] is (p, n) or (..., p, n), and
-densities keep the batch axes.
+Ported so far: :class:`Normal` in precision form with an Identity or
+LinearCombination mean and an Identity or ScaledMatrix precision: its density,
+its draw, box-truncated or not, and the analytic gradient with respect to a
+linear mean parameter (what the conjugate NormalNormal step reads). A truncated
+Normal keeps the reference's unrenormalised density (-inf outside the box) and
+draws by rejection-initialised red-black Gibbs; ``n_active`` waits for
+reversible jump and the other gradients for the Metropolis family (ROADMAP.md
+queue 1: reversible jump; Metropolis family). Entries may carry leading chain
+axes: state[name] is (p, n) or (..., p, n), and densities keep the batch axes.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from openmcmc_tpu_torch.distributions.base import Distribution
 from openmcmc_tpu_torch.linalg import gmrf
 from openmcmc_tpu_torch.linalg import structured as st
-from openmcmc_tpu_torch.parameters import Identity, Parameter, ScaledMatrix
+from openmcmc_tpu_torch.parameters import Identity, LinearCombination, Parameter, ScaledMatrix
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -44,7 +46,7 @@ class LocationScale(Distribution):
 
     def __init__(self, response: str, mean, precision):
         object.__setattr__(self, "response", response)
-        object.__setattr__(self, "mean", _coerce(mean, (Identity,), "mean"))
+        object.__setattr__(self, "mean", _coerce(mean, (Identity, LinearCombination), "mean"))
         object.__setattr__(self, "precision", _coerce(precision, (Identity, ScaledMatrix), "precision"))
 
     @property
@@ -134,6 +136,28 @@ class Normal(LocationScale):
         quad = torch.sum(r * st.matvec(P, r), dim=-2)
         log_p = 0.5 * (d * torch.log(scalar) + log_det - d * _LOG_2PI - scalar * quad)
         return log_p if by_observation else torch.sum(log_p, dim=-1)
+
+    def grad_log_p(self, state: dict, param: str, hessian_required: bool = True):
+        """Gradient (and Hessian) of log_p with respect to a parameter of a linear
+        mean: with A = d mean / d param (p, N) and W the precision, the gradient
+        is A W r over the summed residual columns r, and the Hessian
+        n (A W) A^T, n the replicate columns; chain-batched, (..., p, 1) and
+        (..., p, p). The response and autodiff cases come with the Metropolis
+        family."""
+        linear = isinstance(self.mean, LinearCombination) and param in self.mean.get_grad_param_list()
+        if not linear or param in self.precision.get_grad_param_list():
+            raise NotImplementedError(
+                f"Normal.grad_log_p with respect to {param!r} is not ported yet (ROADMAP.md queue 1: Metropolis family)"
+            )
+        Q = st.as_structured(self.precision.predictor(state))
+        r = torch.sum(state[self.response] - self.mean.predictor(state), dim=-1, keepdim=True)
+        grad_param = self.mean.grad(state, param)  # (p, N)
+        grad_times_prec = st.matvec(Q, grad_param.mT).mT  # (..., p, N); Q stays structured
+        grad = torch.matmul(grad_times_prec, r)
+        if not hessian_required:
+            return grad
+        n = state[self.response].shape[-1]
+        return grad, n * torch.matmul(grad_times_prec, grad_param.mT)
 
     def sample(self, key, state: dict, n: int = 1, batch_shape=()):
         """A draw from the Normal, (..., p, n); ``batch_shape`` gives the chains

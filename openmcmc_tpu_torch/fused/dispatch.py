@@ -6,13 +6,15 @@ the constants the engines assume, exactly as in the JAX package. A failed match
 returns None and the driver falls back to the generic driver, as in the JAX
 package.
 
-Ported so far: the smoother matcher, routed as in the JAX package to the
-spectral engine (kernel K1) or to the Thomas-scan engine (kernel K4) for a
-tridiagonal P0 with p > 1024 (``fused_gmrf_smoother``) or a box-truncated
-latent prior (``fused_gmrf_smoother_truncated``). The other matchers (linreg,
-random walk, mMALA, mixture, reversible jump) and mesh sharding are not ported
-(ROADMAP.md queue 1: linear regression, Metropolis family, mixture, reversible
-jump, parallel).
+Ported so far, tried in the JAX package's order: the smoother matcher, routed
+as in the JAX package to the spectral engine (kernel K1) or to the Thomas-scan
+engine (kernel K4) for a tridiagonal P0 with p > 1024 (``fused_gmrf_smoother``)
+or a box-truncated latent prior (``fused_gmrf_smoother_truncated``); then the
+linear-regression matcher, to the unrolled-Cholesky engine for p <= 16
+(``fused_linreg``, kernel K6) or the spectral one for p <= 256
+(``fused_linreg_spectral``, kernel K5). The other matchers (random walk, mMALA,
+mixture, reversible jump) and mesh sharding are not ported (ROADMAP.md queue 1:
+Metropolis family, mixture, reversible jump, parallel).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from openmcmc_tpu_torch.distributions.location_scale import Normal
 from openmcmc_tpu_torch.distributions.univariate import Gamma
 from openmcmc_tpu_torch.linalg import structured as st
-from openmcmc_tpu_torch.parameters import Identity, ScaledMatrix
+from openmcmc_tpu_torch.parameters import Identity, LinearCombination, ScaledMatrix
 from openmcmc_tpu_torch.samplers.conjugate import NormalGamma, NormalNormal
 
 
@@ -85,10 +87,13 @@ def match_fused_engine(mcmc) -> Optional[Callable]:
         matched.n_burn = mcmc.n_burn * mcmc.n_thin
         matched.n_thin = 1
         matched._kernel_thin = mcmc.n_thin
-    runner = _match_smoother(matched)
-    if runner is not None and mcmc.model.response is not None and not _fitted_ok(mcmc, runner):
-        return None
-    return runner
+    for matcher in (_match_smoother, _match_linreg):
+        runner = matcher(matched)
+        if runner is not None:
+            if mcmc.model.response is not None and not _fitted_ok(mcmc, runner):
+                return None
+            return runner
+    return None
 
 
 def _fitted_ok(mcmc, runner) -> bool:
@@ -235,5 +240,79 @@ def _match_smoother(mcmc) -> Optional[Callable]:
             return package(out)
 
         run.engine_name = "fused_gmrf_smoother_truncated" if truncated else "fused_gmrf_smoother"
+    run.store_keys = frozenset({latent, lam_name, tau_name})
+    return run
+
+
+def _match_linreg(mcmc) -> Optional[Callable]:
+    """y ~ N(X beta, (tau P)^-1); beta ~ N(mu, (lam Plam)^-1); Gamma scales; P
+    and Plam Diagonal. Runs the unrolled-Cholesky engine for p <= 16 and the
+    spectral engine for p <= 256. As in the JAX package, P's diagonal is not
+    checked for positive entries, and the engines count all N observations."""
+    trip = _conjugate_triplet(mcmc)
+    if trip is None:
+        return None
+    latent, _ = trip
+    b_dist = mcmc.model.get(latent)
+    y_dist = None
+    for key, dist in mcmc.model.items():
+        if (key != latent and isinstance(dist, Normal) and type(dist.mean) is LinearCombination
+                and list(dist.mean.form_dict) == [latent]):
+            y_dist = dist
+    if y_dist is None or not isinstance(b_dist, Normal) or y_dist.truncated or b_dist.truncated:
+        return None
+    if _identity_mean_name(b_dist) is None:
+        return None
+    sp_y = _scaled_precision(y_dist)
+    sp_b = _scaled_precision(b_dist)
+    if sp_y is None or sp_b is None:
+        return None
+    ptau = mcmc.data.get(sp_y[0])
+    plam = mcmc.data.get(sp_b[0])
+    if not isinstance(ptau, st.Diagonal) or not isinstance(plam, st.Diagonal):
+        return None
+    X = mcmc.data.get(y_dist.mean.form_dict[latent])
+    y = _column(mcmc.data.get(y_dist.response))
+    mu = _column(mcmc.data.get(_identity_mean_name(b_dist)))
+    if X is None or y is None or mu is None or isinstance(X, st.STRUCTURED_TYPES):
+        return None
+    from openmcmc_tpu_torch.fused.linreg import MAX_P, run_fused_linreg
+    from openmcmc_tpu_torch.fused.spectral import MAX_P as SPECTRAL_MAX_P, run_spectral_linreg
+
+    p = X.shape[1]
+    if p > SPECTRAL_MAX_P:
+        return None
+    tau_name, lam_name = sp_y[1], sp_b[1]
+    # only the matched distributions: an extra term would be silently ignored
+    if set(mcmc.model.keys()) != {y_dist.response, latent, tau_name, lam_name}:
+        return None
+    hyp_tau = _gamma_hypers(mcmc, tau_name)
+    hyp_lam = _gamma_hypers(mcmc, lam_name)
+    tau0 = _initial_scalar(mcmc, tau_name)
+    lam0 = _initial_scalar(mcmc, lam_name)
+    if None in (hyp_tau, hyp_lam, tau0, lam0):
+        return None
+    # p <= 16: the unrolled engine, whose sufficient statistics are float32
+    # device matmuls; larger p: the spectral engine, prepared on the host in f64
+    if p <= MAX_P:
+        runner, engine_name = run_fused_linreg, "fused_linreg"
+    else:
+        runner, engine_name = run_spectral_linreg, "fused_linreg_spectral"
+
+    def run(seed, bit_source=None):
+        out = runner(
+            seed, X, y, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=mcmc.n_chains,
+            a_tau=hyp_tau[0], b_tau=hyp_tau[1], a_lam=hyp_lam[0], b_lam=hyp_lam[1], lam0=lam0, tau0=tau0,
+            mu=mu, plam_diag=plam.diag_, ptau_diag=ptau.diag_, n_thin=_kernel_thin(mcmc), device=mcmc.device,
+            bit_source=bit_source,
+        )
+        store = {
+            latent: out["beta"][..., None],
+            lam_name: out["lam"][..., None, None],
+            tau_name: out["tau"][..., None, None],
+        }
+        return store, out["log_post"], {latent: {}, lam_name: {}, tau_name: {}}
+
+    run.engine_name = engine_name
     run.store_keys = frozenset({latent, lam_name, tau_name})
     return run

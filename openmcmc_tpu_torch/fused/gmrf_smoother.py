@@ -282,11 +282,12 @@ def _vector(v, device) -> torch.Tensor:
 
 
 def prepare(y, s=None, ridge=0.001, P0_bands=None, noise_diag=None, mu0=None, lower=None, upper=None,
-            b_init=None, device="cpu"):
+            b_init=None, device="cuda"):
     """Host preparation of :func:`run_fused_smoother`: P0's bands (``P0_bands``,
     or the RW1 precision of ``s`` with ``ridge`` added to its first diagonal
     entry), y, the noise diagonal D (default ones), mu0 (default zeros) and
-    P0 mu0 as (p,) float32 tensors on ``device``; ``logdet_p0`` by the clamped
+    P0 mu0 as (p,) float32 tensors on ``device`` (the card unless the caller
+    asks for the CPU); ``logdet_p0`` by the clamped
     structured Cholesky and ``logdet_d``; and, when a bound is given, the box
     (+-1e30 for an open side) and the initial latent clipped into it (y unless
     ``b_init``, (p,) or (chains, p), is given)."""

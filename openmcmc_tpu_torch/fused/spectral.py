@@ -1,8 +1,10 @@
-"""Spectral GMRF smoother: the whole Gibbs run in pencil eigencoordinates.
+"""Spectral engines: whole Gibbs runs in pencil eigencoordinates.
 
-Port of the smoother half of ``openmcmc_tpu/fused/spectral.py``
-(``_eigenbasis`` :76, ``run_spectral_smoother`` :568, kernel
-``_make_smoother_kernel`` :319). Model: y ~ N(b, (tau D)^-1),
+Port of the smoother and linear-regression halves of
+``openmcmc_tpu/fused/spectral.py`` (``_eigenbasis`` :76; the smoother
+``run_spectral_smoother`` :568 with kernel ``_make_smoother_kernel`` :319, K1;
+linear regression ``run_spectral_linreg`` :265 with kernel
+``_make_linreg_kernel`` :94, K5). The smoother's model: y ~ N(b, (tau D)^-1),
 b ~ N(mu0, (lam P0)^-1), Gamma priors on lam and tau, for any symmetric PSD P0.
 
 One host-side f64 generalized eigendecomposition, V'DV = I and V'P0V = diag(s),
@@ -17,6 +19,20 @@ all chains: on a CUDA tensor it launches ``csrc/spectral_smoother.cu``, on a CPU
 tensor it takes :func:`smoother_sweeps_plain`, the same sweep as a Python loop
 over sweeps vectorised over chains.
 
+Linear regression, y ~ N(X beta, (tau diag(ptau))^-1),
+beta ~ N(mu, (lam diag(plam))^-1), p <= 256, uses the pencil of G = X'PX and
+diag(plam): V' diag(plam) V = I, V'GV = diag(s), and in w = V^-1 beta
+
+    w ~ N((lam wmu + tau cv) / d, 1 / d),  d = lam + tau s,  wmu = V' plam mu,  cv = V'c,
+    (beta - mu)' diag(plam) (beta - mu) = sum (w - wmu)^2,
+    (y - X beta)' P (y - X beta) = y'Py - 2 sum cv w + sum s w^2   (clamped at 0),
+
+then (tau, lam) as one Gamma pair and beta = V w on stored sweeps.
+:func:`spectral_linreg_sweeps` launches ``csrc/spectral_linreg.cu`` for CUDA
+tensors and takes :func:`spectral_linreg_sweeps_plain` for CPU tensors. Its three
+sums run in one fixed order in both (:func:`window_sums`): tau's form cancels
+heavily, and another order would move tau by far more than rounding.
+
 Not ported, because they exist for the TPU only: the sublane/lane padding and its
 mask, the VMEM lane-block budget, the double-buffered store DMAs, the
 direct/transposed store layouts, and ``Precision.HIGHEST`` plumbing.
@@ -29,10 +45,14 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from openmcmc_tpu_torch.fused import prng
 from openmcmc_tpu_torch.fused.layout import store_index
 
+MAX_P = 256  # spectral linear regression; past it the generic driver runs
+PAD = 8  # p is rounded up to this in the JAX kernel's (p_pad, chains) sums
+SUM_WINDOW = 32
 MAX_P_SMOOTHER = 1024  # tridiagonal P0 past this goes to the Thomas kernel (K4, fused/gmrf_smoother.py)
 MAX_P_SMOOTHER_STREAM = 8192  # any other P0: the host eigendecomposition bounds p
 
@@ -168,16 +188,19 @@ def smoother_sweeps_plain(seed, V, s, wy, wmu, lam0, tau0, *, logdet_p0, logdet_
     return {"b": out_b, **out}
 
 
-def _check_inputs(V, s, wy, wmu, lam0, tau0):
+def _check_inputs(V, vectors: dict, lam0, tau0):
+    """V (p, p), the named (p,) vectors and the (chains,) rows, all contiguous
+    float32 on V's device."""
     p = V.shape[0]
     if V.dim() != 2 or V.shape[1] != p:
         raise ValueError(f"V must be (p, p), got {tuple(V.shape)}")
-    for name, t, n in (("s", s, p), ("wy", wy, p), ("wmu", wmu, p), ("tau0", tau0, lam0.shape[0])):
-        if tuple(t.shape) != (n,):
-            raise ValueError(f"{name} must have shape ({n},), got {tuple(t.shape)}")
     if lam0.dim() != 1 or lam0.shape[0] < 1:
         raise ValueError("lam0 must be a non-empty (chains,) tensor")
-    for name, t in (("V", V), ("s", s), ("wy", wy), ("wmu", wmu), ("lam0", lam0), ("tau0", tau0)):
+    named = {**{k: (t, p) for k, t in vectors.items()}, "lam0": (lam0, lam0.shape[0]), "tau0": (tau0, lam0.shape[0])}
+    for name, (t, n) in named.items():
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got {tuple(t.shape)}")
+    for name, t in (("V", V), *((k, t) for k, (t, _) in named.items())):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != V.device:
             raise ValueError(f"{name}: expected a contiguous float32 tensor on {V.device}")
 
@@ -187,7 +210,7 @@ def smoother_sweeps_kernel(seed, V, s, wy, wmu, lam0, tau0, *, logdet_p0, logdet
     """Launch ``csrc/spectral_smoother.cu`` on CUDA tensors (arguments as
     :func:`smoother_sweeps_plain`). Launches on the current stream, does not
     synchronise."""
-    _check_inputs(V, s, wy, wmu, lam0, tau0)
+    _check_inputs(V, {"s": s, "wy": wy, "wmu": wmu}, lam0, tau0)
     if V.device.type != "cuda":
         raise ValueError(f"spectral smoother kernel: expected CUDA tensors, got {V.device}")
     if n_keep < 1 or n_burn < 0 or n_thin < 1:
@@ -233,7 +256,7 @@ def smoother_sweeps(seed, V, s, wy, wmu, lam0, tau0, *, bit_source=None, **kw):
         return smoother_sweeps_kernel(seed, V, s, wy, wmu, lam0, tau0, **kw)
     if V.device.type != "cpu":
         raise ValueError(f"spectral smoother: unsupported device {V.device}")
-    _check_inputs(V, s, wy, wmu, lam0, tau0)
+    _check_inputs(V, {"s": s, "wy": wy, "wmu": wmu}, lam0, tau0)
     return smoother_sweeps_plain(seed, V, s, wy, wmu, lam0, tau0, bit_source=bit_source, **kw)
 
 
@@ -258,5 +281,234 @@ def run_spectral_smoother(
         seed, torch.as_tensor(prep["V"], **f32), *(torch.as_tensor(prep[k], **f32) for k in ("s", "wy", "wmu")),
         *rows, logdet_p0=float(np.float32(prep["logdet_p0"])), logdet_d=float(np.float32(prep["logdet_d"])),
         a_lam=float(a_lam), b_lam=float(b_lam), a_tau=float(a_tau), b_tau=float(b_tau),
+        n_burn=int(n_burn), n_keep=int(n_iter), n_thin=int(n_thin), bit_source=bit_source,
+    )
+
+
+# ---------------------------------------------------------------------------
+# linear regression (kernel K5)
+# ---------------------------------------------------------------------------
+
+
+def _f64(v) -> np.ndarray:
+    """A host f64 copy of an array, number or tensor (on any device)."""
+    return np.asarray(v.detach().cpu() if torch.is_tensor(v) else v, np.float64)
+
+
+def prepare_linreg(X, y, mu=None, plam_diag=None, ptau_diag=None):
+    """Host preparation of :func:`run_spectral_linreg`, all f64 numpy, as the
+    JAX package does it: ``V`` (p, p), ``s``, ``wmu``, ``cv`` (p,), and
+    ``yPy``, ``logdet_plam``, ``logdet_ptau``, ``n_obs``."""
+    X = _f64(X)
+    y = _f64(y).reshape(-1)
+    n_obs, p = X.shape
+    if p > MAX_P:
+        raise ValueError(f"spectral linreg supports p <= {MAX_P}, got {p}")
+    mu = np.zeros(p) if mu is None else _f64(mu).reshape(-1)
+    plam = np.ones(p) if plam_diag is None else _f64(plam_diag).reshape(-1)
+    ptau = np.ones(n_obs) if ptau_diag is None else _f64(ptau_diag).reshape(-1)
+    XtP = X.T * ptau[None, :]
+    G = XtP @ X
+    c = (XtP @ y).reshape(-1)
+    V, s = _eigenbasis(G, plam)
+    return {
+        "V": V, "s": s, "wmu": V.T @ (plam * mu), "cv": V.T @ c, "yPy": float(np.sum(y * ptau * y)),
+        "logdet_plam": float(np.sum(np.log(plam))), "logdet_ptau": float(np.sum(np.log(ptau))), "n_obs": n_obs,
+    }
+
+
+def sum_windows(p: int):
+    """The fixed order of K5's sums over p eigencoordinates: p rounded up to
+    PAD, then windows of SUM_WINDOW rows with the rounding to whole windows
+    split between both ends (``lo`` rows before row 0), each window summed in
+    row order and the window sums in order. This is the order XLA's CPU
+    reduction takes for the JAX kernel's (p_pad, chains) sums, so the plain
+    version reproduces the JAX package, and it lets the kernel sum the windows
+    on separate lanes. Returns (windows, lo)."""
+    p_pad = p + (-p) % PAD
+    n_win = -(-p_pad // SUM_WINDOW)
+    return n_win, (n_win * SUM_WINDOW - p_pad) // 2
+
+
+def window_sums(terms: torch.Tensor) -> torch.Tensor:
+    """Sum (chains, k, p) terms over the last axis in :func:`sum_windows`'
+    order; returns (chains, k). Zero rows pad the windows (adding 0 is exact)."""
+    n_win, lo = sum_windows(terms.shape[-1])
+    padded = F.pad(terms, (lo, n_win * SUM_WINDOW - lo - terms.shape[-1]))
+    rows = padded.reshape(terms.shape[:-1] + (n_win, SUM_WINDOW)).unbind(-1)
+    part = torch.zeros_like(rows[0])
+    for row in rows:
+        part = part + row
+    total = torch.zeros_like(part[..., 0])
+    for win in part.unbind(-1):
+        total = total + win
+    return total
+
+
+def spectral_linreg_sweeps_plain(seed, V, s, wmu, cv, lam0, tau0, *, yPy, logdet_plam, logdet_ptau, n_obs, a_lam,
+                                 b_lam, a_tau, b_tau, n_burn, n_keep, n_thin=1, bit_source=None):
+    """Plain PyTorch version of the K5 kernel: all sweeps for all chains.
+
+    ``V`` is the (p, p) float32 eigenbasis (beta rows), ``s``/``wmu``/``cv``
+    are (p,), ``lam0``/``tau0`` (chains,) initial scales, ``yPy`` and the two
+    log-determinants float32 values, ``n_obs`` the number of observations;
+    ``n_burn`` counts burn-in SWEEPS and ``n_keep`` stored draws, each after
+    ``n_thin`` sweeps. Draws come from Philox unless ``bit_source(sweep, site,
+    shape)`` supplies them (CPU tensors only). Returns ``beta``
+    (chains, n_keep, p) and ``lam``/``tau``/``log_post`` (chains, n_keep)."""
+    device = V.device
+    if bit_source is not None and device.type != "cpu":
+        raise ValueError("an injected bit source replaces Philox on the CPU only")
+    n_chains, p = lam0.shape[0], V.shape[0]
+    p_real = float(p)
+    a_tau_star, a_lam_star = a_tau + 0.5 * n_obs, a_lam + 0.5 * p_real
+    lgam_lam, lgam_tau = _lgam(a_lam, b_lam), _lgam(a_tau, b_tau)
+    _, _, gamma_widths = prng.gamma_pair_specs(a_tau_star, a_lam_star)
+    widths = [p] + gamma_widths
+    f32 = dict(dtype=torch.float32, device=device)
+    svec, wmu, cv = (torch.as_tensor(v, **f32)[None, :] for v in (s, wmu, cv))
+    ld_plam, ld_ptau = torch.tensor(logdet_plam, **f32), torch.tensor(logdet_ptau, **f32)
+    out_beta = torch.empty((n_chains, n_keep, p), **f32)
+    out = {k: torch.empty((n_chains, n_keep), **f32) for k in ("lam", "tau", "log_post")}
+    lam, tau = lam0.to(**f32).reshape(-1, 1), tau0.to(**f32).reshape(-1, 1)
+    for it in range(n_burn + n_keep * n_thin):
+        if bit_source is None:
+            sites = prng.sweep_bits(seed, n_chains, it, widths, device)
+        else:
+            sites = [bit_source(it, k, (n_chains, w)) for k, w in enumerate(widths)]
+        draw = prng.SiteStream(sites)
+        # NormalNormal: beta | y, lam, tau is diagonal in w = V^-1 beta
+        z = prng.normal_icdf((n_chains, p), draw)
+        d = lam + tau * svec
+        w = (lam * wmu + tau * cv) / d + z * torch.rsqrt(d)
+        # NormalGamma pair (tau, lam): both quadratic forms are sums over w
+        r = w - wmu
+        sums = window_sums(torch.stack([r * r, cv * w, svec * w * w], dim=1))
+        quad_lam = sums[:, 0:1]
+        quad_tau = torch.clamp(yPy - 2.0 * sums[:, 1:2] + sums[:, 2:3], min=0.0)
+        tau, lam = prng.gamma_mt2(a_tau_star, a_lam_star, b_tau + 0.5 * quad_tau, b_lam + 0.5 * quad_lam, draw)
+        idx = store_index(it, n_burn, n_thin)
+        if idx < 0:
+            continue
+        log_like = 0.5 * (n_obs * torch.log(tau) + ld_ptau - n_obs * prng.LOG_2PI - tau * quad_tau)
+        log_beta = 0.5 * (p_real * torch.log(lam) + ld_plam - p_real * prng.LOG_2PI - lam * quad_lam)
+        log_lam = lgam_lam + (a_lam - 1.0) * torch.log(lam) - b_lam * lam
+        log_tau = lgam_tau + (a_tau - 1.0) * torch.log(tau) - b_tau * tau
+        out_beta[:, idx] = torch.matmul(w, V.T)
+        out["lam"][:, idx] = lam[:, 0]
+        out["tau"][:, idx] = tau[:, 0]
+        out["log_post"][:, idx] = (log_like + log_beta + log_lam + log_tau)[:, 0]
+    return {"beta": out_beta, **out}
+
+
+class LinregWideParams(ctypes.Structure):
+    """Mirror of ``struct LinregWideParams`` in ``csrc/spectral_linreg.cu``."""
+
+    _fields_ = [
+        ("seed", ctypes.c_uint32),
+        ("n_chains", ctypes.c_int32),
+        ("p", ctypes.c_int32),
+        ("n_sweeps", ctypes.c_int32),
+        ("n_burn", ctypes.c_int32),
+        ("n_thin", ctypes.c_int32),
+        ("n_keep", ctypes.c_int32),
+        ("sum_windows", ctypes.c_int32),
+        ("sum_lo", ctypes.c_int32),
+        ("yPy", ctypes.c_float),
+        ("logdet_plam", ctypes.c_float),
+        ("logdet_ptau", ctypes.c_float),
+        ("n_obs", ctypes.c_float),
+        ("n_log2pi", ctypes.c_float),
+        ("p_real", ctypes.c_float),
+        ("p_log2pi", ctypes.c_float),
+        ("b_lam", ctypes.c_float),
+        ("b_tau", ctypes.c_float),
+        ("lgam_lam", ctypes.c_float),
+        ("lgam_tau", ctypes.c_float),
+        ("a_lam_m1", ctypes.c_float),
+        ("a_tau_m1", ctypes.c_float),
+        ("g_tau", prng.GammaSpec),
+        ("g_lam", prng.GammaSpec),
+    ]
+
+
+def spectral_linreg_sweeps_kernel(seed, V, s, wmu, cv, lam0, tau0, *, yPy, logdet_plam, logdet_ptau, n_obs, a_lam,
+                                  b_lam, a_tau, b_tau, n_burn, n_keep, n_thin=1):
+    """Launch ``csrc/spectral_linreg.cu`` on CUDA tensors (arguments and results
+    as :func:`spectral_linreg_sweeps_plain`). Launches on the current stream,
+    does not synchronise."""
+    _check_inputs(V, {"s": s, "wmu": wmu, "cv": cv}, lam0, tau0)
+    if V.device.type != "cuda":
+        raise ValueError(f"spectral linreg kernel: expected CUDA tensors, got {V.device}")
+    if n_keep < 1 or n_burn < 0 or n_thin < 1:
+        raise ValueError("need n_keep >= 1, n_burn >= 0 and n_thin >= 1")
+    from openmcmc_tpu_torch import _build
+
+    n_chains, p = lam0.shape[0], V.shape[0]
+    if p > MAX_P:
+        raise ValueError(f"spectral linreg supports p <= {MAX_P}, got {p}")
+    g_tau, g_lam, _ = prng.gamma_pair_specs(a_tau + 0.5 * n_obs, a_lam + 0.5 * p)
+    n_win, lo = sum_windows(p)
+    prm = LinregWideParams(
+        seed=int(seed) & 0xFFFFFFFF, n_chains=n_chains, p=p, n_sweeps=n_burn + n_keep * n_thin, n_burn=n_burn,
+        n_thin=n_thin, n_keep=n_keep, sum_windows=n_win, sum_lo=lo, yPy=yPy, logdet_plam=logdet_plam,
+        logdet_ptau=logdet_ptau, n_obs=n_obs, n_log2pi=n_obs * prng.LOG_2PI, p_real=float(p),
+        p_log2pi=p * prng.LOG_2PI, b_lam=b_lam, b_tau=b_tau, lgam_lam=_lgam(a_lam, b_lam),
+        lgam_tau=_lgam(a_tau, b_tau), a_lam_m1=a_lam - 1.0, a_tau_m1=a_tau - 1.0, g_tau=g_tau, g_lam=g_lam,
+    )
+    VT = V.t().contiguous()
+    out_beta = torch.empty((n_chains, n_keep, p), dtype=torch.float32, device=V.device)
+    out = {k: torch.empty((n_chains, n_keep), dtype=torch.float32, device=V.device)
+           for k in ("lam", "tau", "log_post")}
+    lib = _build.library()
+    with torch.cuda.device(V.device):
+        stream = torch.cuda.current_stream(V.device).cuda_stream
+        err = lib.spectral_linreg_launch(
+            ctypes.byref(prm), VT.data_ptr(), s.data_ptr(), wmu.data_ptr(), cv.data_ptr(), lam0.data_ptr(),
+            tau0.data_ptr(), out_beta.data_ptr(), out["lam"].data_ptr(), out["tau"].data_ptr(),
+            out["log_post"].data_ptr(), stream,
+        )
+    spectral_linreg_sweeps_kernel.launches += 1
+    _build.check(err, "spectral_linreg")
+    return {"beta": out_beta, **out}
+
+
+spectral_linreg_sweeps_kernel.launches = 0
+
+
+def spectral_linreg_sweeps(seed, V, s, wmu, cv, lam0, tau0, *, bit_source=None, **kw):
+    """All sweeps for all chains: the K5 kernel for CUDA tensors, the plain
+    version for CPU tensors. A CUDA call launches the kernel or raises."""
+    if V.device.type == "cuda":
+        if bit_source is not None:
+            raise ValueError("an injected bit source replaces Philox on the CPU only")
+        return spectral_linreg_sweeps_kernel(seed, V, s, wmu, cv, lam0, tau0, **kw)
+    if V.device.type != "cpu":
+        raise ValueError(f"spectral linreg: unsupported device {V.device}")
+    _check_inputs(V, {"s": s, "wmu": wmu, "cv": cv}, lam0, tau0)
+    return spectral_linreg_sweeps_plain(seed, V, s, wmu, cv, lam0, tau0, bit_source=bit_source, **kw)
+
+
+def run_spectral_linreg(
+    seed, X, y, n_burn, n_iter, n_chains,
+    a_tau=1e-3, b_tau=1e-3, a_lam=1e-3, b_lam=1e-3, lam0=0.01, tau0=1.0,
+    mu=None, plam_diag=None, ptau_diag=None, n_thin=1, device="cuda", bit_source=None,
+):
+    """Bayesian linear regression, p <= 256, the whole run in one launch.
+
+    Model, arguments and results as :func:`openmcmc_tpu_torch.fused.linreg.
+    run_fused_linreg` (``beta`` (chains, n_iter, p), ``lam``/``tau``/``log_post``
+    (chains, n_iter)); the host does one f64 generalized eigendecomposition
+    instead of a Cholesky per sweep. ``device`` is the card unless the caller
+    asks for the CPU; ``bit_source(sweep, site, shape)`` replaces Philox (CPU
+    only)."""
+    prep = prepare_linreg(X, y, mu=mu, plam_diag=plam_diag, ptau_diag=ptau_diag)
+    device = torch.device(device)
+    f32 = dict(dtype=torch.float32, device=device)
+    rows = [torch.as_tensor(v, **f32).reshape(-1).expand(n_chains).contiguous() for v in (lam0, tau0)]
+    return spectral_linreg_sweeps(
+        seed, torch.as_tensor(prep["V"], **f32), *(torch.as_tensor(prep[k], **f32) for k in ("s", "wmu", "cv")),
+        *rows, **{k: float(np.float32(prep[k])) for k in ("yPy", "logdet_plam", "logdet_ptau")},
+        n_obs=float(prep["n_obs"]), a_lam=float(a_lam), b_lam=float(b_lam), a_tau=float(a_tau), b_tau=float(b_tau),
         n_burn=int(n_burn), n_keep=int(n_iter), n_thin=int(n_thin), bit_source=bit_source,
     )

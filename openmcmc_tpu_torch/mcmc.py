@@ -13,7 +13,9 @@ flagship smoother each NormalNormal step is one launch of kernel K3.
 generic driver when none matches, as in the JAX package; ``"fused"`` requires a
 match. The fused engines so far: ``fused_smoother_spectral`` (kernel K1),
 ``fused_gmrf_smoother`` (a tridiagonal prior with p > 1024) and
-``fused_gmrf_smoother_truncated`` (a box-truncated latent prior), both kernel K4.
+``fused_gmrf_smoother_truncated`` (a box-truncated latent prior), both kernel K4,
+and for linear regression ``fused_linreg`` (p <= 16, kernel K6) and
+``fused_linreg_spectral`` (p <= 256, kernel K5).
 
 Randomness: the generic driver draws from one ``torch.Generator`` on the device,
 seeded from ``seed`` (torch draws: Gamma variates, prior init, non-tridiagonal
@@ -39,7 +41,7 @@ from openmcmc_tpu_torch.distributions.location_scale import Normal
 from openmcmc_tpu_torch.linalg import gmrf
 from openmcmc_tpu_torch.linalg import structured as st
 from openmcmc_tpu_torch.model import Model
-from openmcmc_tpu_torch.parameters import Identity, ScaledMatrix
+from openmcmc_tpu_torch.parameters import ScaledMatrix
 from openmcmc_tpu_torch.samplers.base import Sampler
 
 
@@ -278,8 +280,11 @@ class MCMC:
     def _fused_fitted(self, store: dict) -> dict:
         """Fitted values of fused runs, recomputed from the stored draws.
 
-        Every predictor the port has is an ``Identity``, which reads one entry and
-        so evaluates on the (chains, draws)-batched store directly."""
+        Every predictor the port has (``Identity``, ``LinearCombination``)
+        broadcasts over leading axes, so it evaluates on the (chains,
+        draws)-batched store directly: X (N, p) @ beta (chains, draws, p, 1) is
+        (chains, draws, N, 1), what the JAX package's vmap over chains and draws
+        computes."""
         if self.model.response is None:
             return {}
         available = set(self.data) | set(store)
@@ -289,11 +294,6 @@ class MCMC:
             predictor = getattr(self.model[response], predictor_name)
             if not set(predictor.get_param_list()) <= available:
                 continue
-            if not isinstance(predictor, Identity):
-                raise NotImplementedError(
-                    f"fitted values of a {type(predictor).__name__} predictor are not ported yet "
-                    "(ROADMAP.md queue 1: linear regression)"
-                )
             fitted[f"{response}_fitted"] = predictor.predictor(full)
         return fitted
 

@@ -5,11 +5,14 @@ structural checks and their ``step`` on chain-batched state (per-chain entries
 (chains, p, n), data (p, n), broadcast). NormalNormal keeps the conditional
 precision structured, so a banded GMRF prior plus a diagonal likelihood stays
 tridiagonal and its draw is one launch of kernel K3; a box-truncated prior takes
-one red-black truncated Gibbs sweep over the current value instead. Not ported
-yet, and raising with their ROADMAP.md item: the LinearCombination and mixture
-likelihood means (queue 1: linear regression; mixture), the lexicographic
-truncated sweep a non-banded precision needs (queue 1: sparse and permuted
-priors) and ``MixtureAllocation`` (queue 1: mixture).
+one red-black truncated Gibbs sweep over the current value instead. A
+LinearCombination likelihood mean adds the dense Hessian n (X'W) X per chain,
+and the draw factors the (chains, p, p) Dense precision with batched
+``torch.linalg.cholesky_ex`` (no kernel: the JAX package leaves it to XLA). Not
+ported yet, and raising with their ROADMAP.md item: the mixture likelihood
+means (queue 1: mixture), the lexicographic truncated sweep a non-banded
+precision needs (queue 1: sparse and permuted priors) and ``MixtureAllocation``
+(queue 1: mixture).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from openmcmc_tpu_torch.distributions.location_scale import Normal
 from openmcmc_tpu_torch.linalg import gmrf
 from openmcmc_tpu_torch.linalg import structured as st
 from openmcmc_tpu_torch.model import Model
-from openmcmc_tpu_torch.parameters import Identity, ScaledMatrix
+from openmcmc_tpu_torch.parameters import Identity, LinearCombination, ScaledMatrix
 from openmcmc_tpu_torch.samplers.base import Sampler
 
 
@@ -50,15 +53,23 @@ class NormalNormal(Sampler):
                 Q = Q_rsp if Q is None else st.add(Q, Q_rsp)
                 b = b + st.matvec(Q_rsp, dist.mean.predictor(state))
                 continue
-            if not isinstance(dist.mean, Identity):
+            if isinstance(dist.mean, Identity):
+                # Hessian n W, structured, so GMRF bandedness survives
+                n_obs = state[key_r].shape[-1]
+                Q_dist = st.scale(float(n_obs), Q_rsp)
+                b = b + st.matvec(Q_rsp, torch.sum(state[key_r], dim=-1, keepdim=True))
+            elif isinstance(dist.mean, LinearCombination):
+                # Q += n (X'W) X, b += X'W (y - the other terms), per chain
+                _, Q_dense = dist.grad_log_p(state, param)
+                Q_dist = st.Dense(Q_dense)
+                rest = dist.mean.predictor_conditional(state, term_to_exclude=param)
+                A = state[dist.mean.form_dict[param]]
+                b = b + torch.matmul(A.mT, st.matvec(Q_rsp, state[key_r] - rest))
+            else:
                 raise NotImplementedError(
                     f"NormalNormal with a {type(dist.mean).__name__} likelihood mean is not ported yet "
-                    "(ROADMAP.md queue 1: linear regression; mixture)"
+                    "(ROADMAP.md queue 1: mixture)"
                 )
-            # Identity mean: Hessian n W, structured, so GMRF bandedness survives
-            n_obs = state[key_r].shape[-1]
-            Q_dist = st.scale(float(n_obs), Q_rsp)
-            b = b + st.matvec(Q_rsp, torch.sum(state[key_r], dim=-1, keepdim=True))
             Q = Q_dist if Q is None else st.add(Q, Q_dist)
         prior = self.model[param]
         if not prior.truncated:

@@ -228,3 +228,66 @@ def test_truncated_auto_run_launches_k4_once(dev):
     assert b.device.type == "cuda" and tuple(b.shape) == (96, 20, p, 1)
     assert float(b.min()) >= 0.0 and float(b.max()) <= 3.5
     assert bool(torch.all(torch.isfinite(res.log_post)))
+
+
+def _linreg_problem(dev, N, p, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, p))
+    y = X @ rng.normal(size=p) + 0.5 * rng.normal(size=N)
+    return X, y, dict(plam_diag=rng.uniform(0.5, 2.0, p), ptau_diag=rng.uniform(0.5, 2.0, N),
+                      mu=0.3 * rng.normal(size=p))
+
+
+def _assert_kernel_matches_plain(got, want):
+    for name in ("beta", "lam", "tau"):
+        torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
+    assert torch.all(torch.abs(got["log_post"] - want["log_post"])
+                     <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
+
+
+@pytest.mark.parametrize("p,a_lam", [(1, 0.2), (2, 1e-3), (7, 2.0), (16, 2.0)],
+                         ids=["p1_shape_below_1", "p2", "p7", "p16"])
+def test_linreg_kernel_matches_plain(dev, p, a_lam):
+    """K6 against its plain version on the same Philox bits: 200 chains (ragged
+    against the 32-thread blocks), n_burn 4, n_keep 6, n_thin 2; beta, lam, tau
+    rtol 1e-4 atol 1e-5, log_post 1e-4 relative."""
+    from openmcmc_tpu_torch.fused import linreg
+
+    X, y, extra = _linreg_problem(dev, 60, p, p)
+    f32 = dict(dtype=torch.float32, device=dev)
+    G, c, scal = linreg.sufficient_statistics(torch.as_tensor(X, **f32), torch.as_tensor(y, **f32),
+                                              torch.as_tensor(extra["plam_diag"], **f32),
+                                              torch.as_tensor(extra["ptau_diag"], **f32))
+    args = [G, c, torch.as_tensor(extra["plam_diag"], **f32), torch.as_tensor(extra["mu"], **f32), scal,
+            torch.full((200,), 0.5, **f32), torch.full((200,), 1.0, **f32)]
+    kw = dict(n_obs=60.0, a_lam=a_lam, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=4, n_keep=6, n_thin=2)
+    before = linreg.linreg_sweeps_kernel.launches
+    got = linreg.linreg_sweeps(5, *args, **kw)
+    want = linreg.linreg_sweeps_plain(5, *args, **kw)
+    torch.cuda.synchronize()
+    assert linreg.linreg_sweeps_kernel.launches == before + 1
+    assert tuple(got["beta"].shape) == (200, 6, p)
+    _assert_kernel_matches_plain(got, want)
+
+
+@pytest.mark.parametrize("N,p", [(80, 24), (600, 250)], ids=["p24_smem", "p250_global"])
+def test_spectral_linreg_kernel_matches_plain(dev, N, p):
+    """K5 against its plain version on the same Philox bits: 100 chains, n_burn
+    3, n_keep 5, n_thin 2; V in shared memory at p = 24, in global memory at the
+    ragged p = 250 (eight 32-row sum windows)."""
+    from openmcmc_tpu_torch.fused import spectral
+
+    X, y, extra = _linreg_problem(dev, N, p, p)
+    prep = spectral.prepare_linreg(X, y, **extra)
+    f32 = dict(dtype=torch.float32, device=dev)
+    args = [torch.as_tensor(prep[k], **f32).contiguous() for k in ("V", "s", "wmu", "cv")]
+    args += [torch.full((100,), 0.5, **f32), torch.full((100,), 1.0, **f32)]
+    kw = {k: float(np.float32(prep[k])) for k in ("yPy", "logdet_plam", "logdet_ptau")}
+    kw.update(n_obs=float(N), a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=3, n_keep=5, n_thin=2)
+    before = spectral.spectral_linreg_sweeps_kernel.launches
+    got = spectral.spectral_linreg_sweeps(3, *args, **kw)
+    want = spectral.spectral_linreg_sweeps_plain(3, *args, **kw)
+    torch.cuda.synchronize()
+    assert spectral.spectral_linreg_sweeps_kernel.launches == before + 1
+    assert tuple(got["beta"].shape) == (100, 5, p)
+    _assert_kernel_matches_plain(got, want)

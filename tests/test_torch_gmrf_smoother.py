@@ -157,7 +157,7 @@ def test_log_post_is_model_log_p(truncated):
     pb = smoother_problem(2)
     box = dict(lower=0.0, upper=1.2) if truncated else {}
     out = tgs.run_fused_smoother(11, **pb, n_burn=2, n_iter=4, n_chains=8, **HYPERS, **box, device="cpu")
-    prep = tgs.prepare(pb["y"], pb["s"], noise_diag=pb["noise_diag"], mu0=pb["mu0"])
+    prep = tgs.prepare(pb["y"], pb["s"], noise_diag=pb["noise_diag"], mu0=pb["mu0"], device="cpu")
     f32 = dict(dtype=torch.float32)
     n = 8 * 4
     state = {
@@ -191,7 +191,7 @@ def test_philox_stream_and_input_checks():
                                    **box)
     assert not torch.equal(other["lam"], head["lam"])
 
-    prep = tgs.prepare(y, s)
+    prep = tgs.prepare(y, s, device="cpu")
     vecs = [prep[k] for k in ("p0d", "p0c", "y", "d", "mu", "p0mu")]
     rows = [torch.ones(4), torch.ones(4)]
     kw = dict(logdet_p0=0.0, logdet_d=0.0, a_lam=1.0, b_lam=1.0, a_tau=1.0, b_tau=1.0, n_burn=0, n_keep=1)
