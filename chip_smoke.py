@@ -35,6 +35,24 @@ held against the generic driver's (the dense NormalNormal step, no kernel):
   Gamma(1, 1) scales, 4096 chains, 200 burn-in and 500 stored sweeps), engine
   ``fused_linreg_spectral``, the spectral linear-regression kernel (K5).
 
+Then the Metropolis family, each cell through ``MCMC.run(engine="auto")`` with
+one launch of its kernel, that kernel held against its plain version on a short
+run at full width, and its posterior means held against a generic twin's (the
+port's RandomWalk or ManifoldMALA, no kernel) and, where there is one, the
+analytic posterior:
+
+- ``rw``: the reference's example 2 as bench_all.py builds it (y = [150, 155,
+  190, 160, 173], h0 = 200, RandomWalk step 5, 8192 chains, no burn-in, 1000
+  stored sweeps), engine ``fused_random_walk``, the random-walk kernel (K7);
+- ``rw_box``: K7 at its limit, p = 32, truncated proposals on [-10, 10] with
+  per-dimension steps and adaptation (4096 chains, 500 burn-in and 1000 stored
+  sweeps), engine ``fused_random_walk``;
+- ``mmala``: bench_all.py's mMALA regression (N = 100, p = 5, 4096 chains, 200
+  burn-in and 1000 stored sweeps), engine ``fused_mmala``, the mMALA kernel (K8);
+- ``mmala_wide``: the spectral mMALA engine at its limit (N = 2048, p = 256,
+  adaptation, 4096 chains, 200 burn-in and 500 stored sweeps), engine
+  ``fused_mmala_spectral``, the spectral mMALA kernel (K9).
+
 Each path runs with every launch count set to 0 just before it and read just
 after. The kernels are timed against their plain versions with CUDA events,
 beside the least time the card could take for the same work (``bound_ms``).
@@ -68,6 +86,9 @@ REPLACES = {
     "truncnorm_draws": "openmcmc_tpu/fused/prng.py:339",
     "linreg": "openmcmc_tpu/fused/linreg.py:50",
     "spectral_linreg": "openmcmc_tpu/fused/spectral.py:94",
+    "random_walk": "openmcmc_tpu/fused/random_walk.py:46",
+    "mmala": "openmcmc_tpu/fused/mmala.py:49",
+    "spectral_mmala": "openmcmc_tpu/fused/spectral.py:655",
 }
 # the K4 cells: bench_all.py's truncated_smoother (bench_all.py:468, :762) and the
 # flagship model past the spectral engine's tridiagonal limit (p > 1024)
@@ -81,6 +102,19 @@ R_N, R_CHAINS, R_BURN, R_ITER, R_SEED = 100, 4096, 1000, 1000, 3
 R_GEN_BURN, R_GEN_ITER = 200, 300
 W_N, W_P, W_CHAINS, W_BURN, W_ITER, W_SEED = 2048, 256, 4096, 200, 500, 7
 W_GEN_CHAINS, W_GEN_BURN, W_GEN_ITER = 256, 50, 150
+# the Metropolis cells: example 2 (bench_all.py:120-126, fused row :598-601), K7 at
+# p = 32 with a box and adaptation, the mMALA regression (bench_all.py:129-144,
+# fused row :593-594) and K9 at p = 256; their generic twins run fewer chains
+# (rw_box, mmala_wide) and fewer sweeps (mmala, mmala_wide). rw_box's twin keeps
+# the cell's sweeps: from h0 = 0 its joint walk needs about 400 sweeps to reach
+# the posterior, so a shorter twin would compare two different transients
+RW_Y, RW_CHAINS, RW_ITER = (150.0, 155.0, 190.0, 160.0, 173.0), 8192, 1000
+B_P, B_N, B_CHAINS, B_BURN, B_ITER, B_SEED = 32, 20, 4096, 500, 1000, 1
+B_GEN_CHAINS, B_GEN_BURN, B_GEN_ITER = 1024, 500, 1000
+M_N, M_P, M_CHAINS, M_BURN, M_ITER = 100, 5, 4096, 200, 1000
+M_GEN_BURN, M_GEN_ITER = 200, 300
+MW_N, MW_P, MW_CHAINS, MW_BURN, MW_ITER, MW_SEED = 2048, 256, 4096, 200, 500, 7
+MW_GEN_CHAINS, MW_GEN_BURN, MW_GEN_ITER = 256, 50, 150
 # H100 SXM data sheet: HBM bandwidth and the float32 rate outside the tensor cores
 # (TF32 is excluded: the port keeps full float32, ROADMAP.md's invariant)
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
@@ -102,6 +136,13 @@ K6_FLOP_PER_STORE = 30       # the analytic log posterior
 K5_FLOP_PER_COORD = 47       # csrc/spectral_linreg.cu: inverse-CDF normal 30, w draw 9, the three sums 8
 K5_FLOP_PER_SWEEP = 110      # the (tau, lam) Gamma pair, one round each, the rates and q_tau
 K5_FLOP_PER_STORE = 30       # the analytic log posterior; the store adds 2 p^2 for beta = V w
+K7_FLOP_PER_COORD = 47       # csrc/random_walk.cu: inverse-CDF normal 30, proposal 3, log-density terms 14
+K7_FLOP_PER_TRUNC_COORD = 195  # truncated draw 78, two truncnorm_logpdf 51 each, their sums 2, the rest 15
+K7_FLOP_PER_SWEEP = 20       # the accept uniform, its log and test, the Robbins-Monro nudge
+K8_FLOP_PER_SWEEP = 30       # csrc/mmala.cu: the accept, the adapted step's constants
+K9_FLOP_PER_COORD = 55       # csrc/spectral_mmala.cu: inverse-CDF normal 30, proposal 6, the four sums 19
+K9_FLOP_PER_SWEEP = 40       # the totals, target, both proposal densities, accept and nudge
+K9_FLOP_PER_STORE = 2        # the store adds 2 p^2 for beta = V w
 
 
 def k6_flop_per_sweep(p):
@@ -111,6 +152,14 @@ def k6_flop_per_sweep(p):
     chol = sum(4 + 2 * j + (p - 1 - j) * (2 + 2 * j) for j in range(p))
     solves = sum(4 + 2 * i for i in range(p)) + sum(2 + 2 * (p - 1 - i) for i in range(p))
     return K6_FLOP_PER_NORMAL * p + chol + solves + (3 + 3 * p) * p + 4 * p + K6_FLOP_PER_SWEEP
+
+
+def k8_flop_per_sweep(p):
+    """K8's float32 operations per chain and sweep, counted from csrc/mmala.cu:
+    the normals, the back substitution (p^2), both proposal means and the
+    proposal (8p), the target (3p^2 + 2p + 4), the two proposal densities
+    (3p(p + 1) + 4p + 8) and the accept."""
+    return 30 * p + p * p + 8 * p + 3 * p * p + 2 * p + 4 + 3 * p * (p + 1) + 4 * p + 8 + K8_FLOP_PER_SWEEP
 
 
 def bound(n_bytes, n_flop):
@@ -304,13 +353,15 @@ def build_mcmc(dev, n_chains=None):
 
 
 def _wrappers():
-    from openmcmc_tpu_torch.fused import gmrf_smoother, linreg, prng, spectral
+    from openmcmc_tpu_torch.fused import gmrf_smoother, linreg, mmala, prng, random_walk, spectral
     from openmcmc_tpu_torch.linalg import tridiag
 
     return {"spectral_smoother": spectral.smoother_sweeps_kernel, "prng_draws": prng.draws,
             "tridiag_canonical": tridiag.sample_canonical_tridiag_kernel,
             "gmrf_smoother": gmrf_smoother.gmrf_smoother_kernel, "truncnorm_draws": prng.truncnorm_draws,
-            "linreg": linreg.linreg_sweeps_kernel, "spectral_linreg": spectral.spectral_linreg_sweeps_kernel}
+            "linreg": linreg.linreg_sweeps_kernel, "spectral_linreg": spectral.spectral_linreg_sweeps_kernel,
+            "random_walk": random_walk.rw_sweeps_kernel, "mmala": mmala.mmala_sweeps_kernel,
+            "spectral_mmala": spectral.spectral_mmala_sweeps_kernel}
 
 
 def reset_launches():
@@ -1086,6 +1137,297 @@ def linreg_wide_phase(dev, smi):
     return {"launches": launches["spectral_linreg"], "max_abs_err": err, **entry}
 
 
+def rw_mcmc(dev, kind, n_chains=None, n_burn=None, n_iter=None):
+    """The random-walk cells in the port: ``rw``, the reference's example 2
+    (bench_all.py:120-126), or ``rw_box``, p = 32 rows of 20 observations from
+    N(2, 1) (numpy seed 0), tau = I and lambda = 0.01 I as Diagonals, mu = 0,
+    h0 = 0, steps 0.1 (1 + i/32), proposals truncated to [-10, 10], adapting."""
+    from openmcmc_tpu_torch import MCMC, Model
+    from openmcmc_tpu_torch.distributions import Normal
+    from openmcmc_tpu_torch.linalg import structured as st
+    from openmcmc_tpu_torch.samplers import RandomWalk
+
+    mdl = Model([Normal("y", mean="h", precision="tau"), Normal("h", mean="mu", precision="lambda")])
+    if kind == "rw":
+        state = {"y": np.array([RW_Y]), "h": 200.0, "tau": np.eye(1) / 200.0, "mu": 160.0,
+                 "lambda": np.eye(1) / 100.0}
+        sampler = RandomWalk("h", mdl, step=5.0)
+        dims = dict(n_chains=RW_CHAINS, n_burn=0, n_iter=RW_ITER, seed=0)
+    else:
+        state = {"y": np.random.default_rng(0).normal(2.0, 1.0, (B_P, B_N)), "h": np.zeros((B_P, 1)),
+                 "tau": st.Diagonal(torch.ones(B_P)), "mu": np.zeros((B_P, 1)),
+                 "lambda": st.Diagonal(torch.full((B_P,), 0.01))}
+        step = (0.1 * (1.0 + np.arange(B_P) / B_P))[:, None]
+        sampler = RandomWalk("h", mdl, step=step, domain_limits=[[-10.0, 10.0]], adapt_step=True)
+        dims = dict(n_chains=B_CHAINS, n_burn=B_BURN, n_iter=B_ITER, seed=B_SEED)
+    for k, v in (("n_chains", n_chains), ("n_burn", n_burn), ("n_iter", n_iter)):
+        if v is not None:
+            dims[k] = v
+    return MCMC(state, [sampler], mdl, device=dev, **dims)
+
+
+def mmala_data(N, p, noise, wide):
+    """bench_all.py's mMALA data (numpy seed 0): X, beta_true, then noise, as
+    (N, p) and (N, 1); ``wide`` draws beta_true as a (p,) vector first."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(N, p))
+    beta = rng.normal(size=p) if wide else rng.normal(size=(p, 1))
+    y = (X @ beta).reshape(N, 1) + noise * rng.normal(size=(N, 1))
+    return X, y
+
+
+def mmala_mcmc(dev, wide, n_chains=None, n_burn=None, n_iter=None):
+    """The mMALA cells in the port: y ~ N(X beta, (tau P)^-1), beta ~ N(0, (one
+    P0)^-1), P = 100 I, P0 = 0.01 I, tau = one = 1 (bench_all.py:129-144), at
+    N = 100, p = 5, step 1; or ``wide``: N = 2048, p = 256, noise sd 0.1, step 1
+    adapting toward 0.574."""
+    from openmcmc_tpu_torch import MCMC, Model
+    from openmcmc_tpu_torch.distributions import Normal
+    from openmcmc_tpu_torch.linalg import structured as st
+    from openmcmc_tpu_torch.parameters import LinearCombination, ScaledMatrix
+    from openmcmc_tpu_torch.samplers import ManifoldMALA
+
+    N, p = (MW_N, MW_P) if wide else (M_N, M_P)
+    X, y = mmala_data(N, p, 0.1, wide)
+    mdl = Model([
+        Normal("y", mean=LinearCombination(form={"beta": "X"}), precision=ScaledMatrix("P", "tau")),
+        Normal("beta", mean="mu0", precision=ScaledMatrix("P0", "one")),
+    ])
+    state = {"y": y, "X": X, "beta": np.zeros((p, 1)), "P": st.Diagonal(torch.full((N,), 100.0)), "tau": 1.0,
+             "P0": st.Diagonal(torch.full((p,), 0.01)), "mu0": np.zeros((p, 1)), "one": 1.0}
+    sampler = ManifoldMALA("beta", mdl, step=1.0, adapt_step=wide)
+    if wide:
+        dims = dict(n_chains=MW_CHAINS, n_burn=MW_BURN, n_iter=MW_ITER, seed=MW_SEED)
+    else:
+        dims = dict(n_chains=M_CHAINS, n_burn=M_BURN, n_iter=M_ITER, seed=0)
+    for k, v in (("n_chains", n_chains), ("n_burn", n_burn), ("n_iter", n_iter)):
+        if v is not None:
+            dims[k] = v
+    return MCMC(state, [sampler], mdl, device=dev, **dims)
+
+
+def mmala_posterior(wide):
+    """The analytic posterior mean and sd of beta, f64."""
+    N, p = (MW_N, MW_P) if wide else (M_N, M_P)
+    X, y = mmala_data(N, p, 0.1, wide)
+    A = 100.0 * X.T @ X + 0.01 * np.eye(p)
+    return np.linalg.solve(A, 100.0 * X.T @ y).reshape(-1), np.sqrt(np.diag(np.linalg.inv(A)))
+
+
+def compare_mh(got, want, draw):
+    """Per-chain agreement of a Metropolis kernel with its plain version: the
+    draws (rtol 1e-4, atol 1e-5), log_post (1e-4 relative) and every accept
+    decision; returns (agreeing chains, max abs err of the draws)."""
+    g, w = got[draw], want[draw]
+    ok = torch.isclose(g, w, rtol=1e-4, atol=1e-5).reshape(g.shape[0], -1).all(1)
+    ok &= (torch.abs(got["log_post"] - want["log_post"]) <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0)).all(1)
+    ok &= (got["accept"] == want["accept"]).all(1)
+    return int(ok.sum()), float(torch.max(torch.abs(g - w)))
+
+
+def mh_cell(tag, mcmc, engine, kernel, name):
+    """One Metropolis cell's run: MCMC.run(engine="auto") with the counts at 0
+    around it, one launch of ``kernel`` and no other, the store's shape and
+    finiteness, the statistics' shapes."""
+    n_chains, n_iter, p = mcmc.n_chains, mcmc.n_iter, mcmc.initial_chain_state[name].shape[0]
+    reset_launches()
+    t0 = time.perf_counter()
+    res = mcmc.run(engine="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if res.engine != engine or launches != only(kernel, 1):
+        raise AssertionError(f"{tag}: engine {res.engine}, kernel launches {launches}")
+    draws = res.store[name]
+    if tuple(draws.shape) != (n_chains, n_iter, p, 1) or tuple(res.log_post.shape) != (n_chains, n_iter):
+        raise AssertionError(f"{tag}: store {tuple(draws.shape)}, log_post {tuple(res.log_post.shape)}")
+    for v in (draws, res.log_post):
+        if not bool(torch.all(torch.isfinite(v))) or v.device.type != DEVICE_TYPE:
+            raise AssertionError(f"{tag}: non-finite values, or not on the card")
+    stats = res.stats[name]
+    if tuple(stats["accept"].shape) != (n_chains,) or not bool(torch.all(stats["proposal"] == mcmc.n_burn + n_iter)):
+        raise AssertionError(f"{tag}: statistics {[(k, tuple(v.shape)) for k, v in stats.items()]}")
+    acc = float(res.acceptance[name].mean())
+    log(tag, f"MCMC.run(engine='auto'): engine {res.engine}, kernel launches {launches}, {name} "
+        f"{tuple(draws.shape)}, first run {wall:.3f} s; acceptance {acc:.2f} % over burn-in and sampling")
+    return res, launches, acc
+
+
+def mh_checks(tag, mcmc, res, name, kernel_fn, plain_fn, args, kw, short, gen_mcmc, draw, chunk_size, exact=None,
+              keep_from=0):
+    """The kernel against its plain version on a short run at full width
+    (>= 99.9 % of chains agree), the fused run's posterior means against the
+    generic twin's (which launches no kernel) and, given ``exact`` = (mean, sd),
+    against the analytic posterior over the draws from ``keep_from`` on, each
+    within 5 MC sd."""
+    fused = moments({name: res.store[name][..., 0]}, chunk_size)
+    ess = float(fused[name][2].mean())
+    exact_z = None
+    if exact is not None:
+        kept = moments({name: res.store[name][:, keep_from:, :, 0]}, chunk_size)[name]
+        mean = torch.as_tensor(exact[0], dtype=torch.float64, device=kept[0].device)
+        exact_z = float(torch.max(torch.abs(kept[0] - mean) / (kept[1] / torch.sqrt(kept[2]))))
+        if not exact_z < 5.0:
+            raise AssertionError(f"{tag}: posterior means off the analytic posterior by {exact_z:.2f} MC sd")
+    del res
+    torch.cuda.empty_cache()
+    got = kernel_fn(mcmc.seed, *args, **kw, **short)
+    want, plain_ms = cuda_call_ms(lambda: plain_fn(mcmc.seed, *args, **kw, **short))
+    agree, err = compare_mh(got, want, draw)
+    del got, want
+    n_chains = mcmc.n_chains
+    if agree < 0.999 * n_chains:
+        raise AssertionError(f"{tag}: only {agree} of {n_chains} chains agree with the plain version")
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = gen_mcmc.run()
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = read_launches()
+    if gen.engine != "generic" or any(gen_launches.values()):
+        raise AssertionError(f"{tag}: the generic twin ran {gen.engine} with kernel launches {gen_launches}")
+    z = moments_z(fused, moments({name: gen.store[name][..., 0]}, chunk_size))
+    gen_acc = float(gen.acceptance[name].mean())
+    del gen
+    torch.cuda.empty_cache()
+    if not z < 5.0:
+        raise AssertionError(f"{tag}: posterior means off the generic run's by {z:.2f} MC sd")
+    log(tag, f"kernel and plain version agree on {agree} of {n_chains} chains at n_burn {short['n_burn']}, n_iter "
+        f"{short['n_keep']} (rtol 1e-4, every accept decision), max abs err {err:.3g}; means of {name} within "
+        f"{z:.2f} MC sd of the generic run's (limit 5; generic run of {gen_mcmc.n_chains} chains, {gen_mcmc.n_burn} + "
+        f"{gen_mcmc.n_iter} sweeps, {gen_wall:.3f} s, acceptance {gen_acc:.2f} %)"
+        + ("" if exact_z is None else f" and within {exact_z:.2f} MC sd of the analytic posterior")
+        + f"; mean ESS of {name} {ess:.1f} over {n_chains * mcmc.n_iter} draws")
+    return err, plain_ms, ess
+
+
+def mh_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n_in, p, ess, acc, plain_ms, reps):
+    """The kernel's time on the whole run, on the same sweeps with one stored
+    draw and on the plain version's short run (CUDA events, median of ``reps``),
+    MCMC.run end to end, the bounds."""
+    n_chains = mcmc.n_chains
+
+    def bound_of(h):
+        n_sweeps, n_keep = h["n_burn"] + h["n_keep"] * h["n_thin"], h["n_keep"]
+        n_bytes = 4 * (n_in + n_chains * n_keep * (p + 2) + 2 * n_chains)
+        n_flop = n_chains * flop_fn(n_sweeps, n_keep)
+        return (*bound(n_bytes, n_flop), n_flop, n_bytes)
+
+    run_ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, **run_hyp), reps)
+    n_sweeps = run_hyp["n_burn"] + run_hyp["n_keep"] * run_hyp["n_thin"]
+    sweeps_ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, n_burn=n_sweeps - 1, n_keep=1, n_thin=1), reps)
+    ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, **short), reps)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = mcmc.run(engine="auto")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del res
+    e2e = statistics.median(walls)
+    run_bound = bound_of(run_hyp)
+    bound_ms, bound_by, n_flop, n_bytes = bound_of(short)
+    log(tag, f"{smi}: kernel {run_ms:.4f} ms for the whole run (median of {reps}), bound {run_bound[0]:.4f} ms "
+        f"({run_bound[1]}: {run_bound[2]:.3g} FLOP, {run_bound[3]:.3g} B); MCMC.run end to end {1e3 * e2e:.3f} ms "
+        f"(median of {reps}); the same {n_sweeps} sweeps with one stored draw {sweeps_ms:.4f} ms")
+    log(tag, f"{smi}: at n_burn {short['n_burn']}, n_iter {short['n_keep']}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms "
+        f"(the check's call), bound {bound_ms:.5f} ms ({bound_by}: {n_flop:.3g} FLOP, {n_bytes:.3g} B)")
+    log(tag, f"{smi}: acceptance {acc:.2f} %; ESS/s {ess / (run_ms / 1e3):.4g} on kernel time, {ess / e2e:.4g} "
+        "end to end")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "run_ms": run_ms, "run_bound_ms": run_bound[0], "run_bound_by": run_bound[1], "run_e2e_ms": 1e3 * e2e}
+
+
+def rw_phase(dev, smi, kind):
+    """``rw`` (example 2, K7 at p = 1) or ``rw_box`` (K7 at p = 32, truncated,
+    adapting): one K7 launch, K7 against its plain version, posterior means
+    against the generic twin's (and, for example 2, the analytic posterior)."""
+    from openmcmc_tpu_torch.fused import random_walk as rw
+
+    mcmc = rw_mcmc(dev, kind)
+    res, launches, acc = mh_cell(kind, mcmc, "fused_random_walk", "random_walk", "h")
+    # K7's inputs as the dispatcher feeds them
+    sampler = mcmc.samplers[0]
+    p = mcmc.data["y"].shape[0]
+    box = None if sampler.domain_limits is None else (np.full(p, -10.0), np.full(p, 10.0))
+    scal, kw = rw.prepare(mcmc.data["y"], mu=mcmc.data["mu"][:, 0], tau=st_diag(mcmc.data["tau"], p),
+                          lam=st_diag(mcmc.data["lambda"], p), step=sampler.step_size,
+                          h0=mcmc.initial_chain_state["h"][:, 0], domain=box, device=dev)
+    kw.update(adapt=sampler.adapt_step, target=sampler.target_accept, rate=sampler.adapt_rate)
+    if kind == "rw":
+        # the analytic conjugate posterior of h, held against the draws after the
+        # first 200 (the chains start 7 posterior sd away, at h0 = 200)
+        prec = len(RW_Y) / 200.0 + 1.0 / 100.0
+        exact = (np.array([(sum(RW_Y) / 200.0 + 160.0 / 100.0) / prec]), np.array([prec ** -0.5]))
+        short, gen, chunk = dict(n_burn=0, n_keep=50, n_thin=1), rw_mcmc(dev, kind), 8
+    else:
+        short, exact, chunk = dict(n_burn=20, n_keep=30, n_thin=1), None, 32
+        gen = rw_mcmc(dev, kind, n_chains=B_GEN_CHAINS, n_burn=B_GEN_BURN, n_iter=B_GEN_ITER)
+    err, plain_ms, ess = mh_checks(kind, mcmc, res, "h", rw.rw_sweeps_kernel, rw.rw_sweeps_plain, (scal, mcmc.n_chains),
+                                   kw, short, gen, "h", chunk, exact=exact, keep_from=200)
+    per_coord = K7_FLOP_PER_TRUNC_COORD if box is not None else K7_FLOP_PER_COORD
+
+    def flop(n_sweeps, n_keep):
+        return n_sweeps * (per_coord * p + K7_FLOP_PER_SWEEP)
+
+    entry = mh_times(smi, kind, mcmc, rw.rw_sweeps_kernel, (scal, mcmc.n_chains), kw,
+                     dict(n_burn=mcmc.n_burn, n_keep=mcmc.n_iter, n_thin=1), short, flop, scal.numel(), p, ess, acc,
+                     plain_ms, reps=3)
+    return {"launches": launches["random_walk"], "max_abs_err": err, "acceptance_pct": acc, **entry}
+
+
+def st_diag(value, p):
+    """The (p,) diagonal of a constant diagonal precision entry, on the host."""
+    from openmcmc_tpu_torch.linalg import structured as st
+
+    d = st.diag(st.as_structured(value)).detach().cpu().double().numpy().reshape(-1)
+    return np.broadcast_to(d, (p,)).copy()
+
+
+def mmala_phase(dev, smi, wide):
+    """``mmala`` (K8, p = 5) or ``mmala_wide`` (K9, p = 256): one launch, the
+    kernel against its plain version, posterior means against the generic twin's
+    and the analytic posterior c = A^-1 v."""
+    from openmcmc_tpu_torch.fused import mmala, spectral
+
+    tag = "mmala_wide" if wide else "mmala"
+    mcmc = mmala_mcmc(dev, wide)
+    engine, kernel = ("fused_mmala_spectral", "spectral_mmala") if wide else ("fused_mmala", "mmala")
+    res, launches, acc = mh_cell(tag, mcmc, engine, kernel, "beta")
+    sampler = mcmc.samplers[0]
+    N, p = mcmc.data["X"].shape
+    host = dict(tau=1.0, lam=1.0, ptau_diag=mcmc.data["P"].diag_, plam_diag=mcmc.data["P0"].diag_,
+                mu0=mcmc.data["mu0"][:, 0], beta0=mcmc.initial_chain_state["beta"][:, 0])
+    mh = dict(step=1.0, adapt=sampler.adapt_step, target=sampler.target_accept, rate=sampler.adapt_rate)
+    if wide:
+        tensors, kw = spectral.mmala_inputs(spectral.prepare_mmala(mcmc.data["X"], mcmc.data["y"], **host), dev)
+        args, kernel_fn, plain_fn = (*tensors, mcmc.n_chains), spectral.spectral_mmala_sweeps_kernel, \
+            spectral.spectral_mmala_sweeps_plain
+        kw.update(mh)
+        short, chunk = dict(n_burn=2, n_keep=3, n_thin=1), 32
+        gen = mmala_mcmc(dev, wide, n_chains=MW_GEN_CHAINS, n_burn=MW_GEN_BURN, n_iter=MW_GEN_ITER)
+        n_in = p * p + 4 * p
+
+        def flop(n_sweeps, n_keep):
+            return n_sweeps * (K9_FLOP_PER_COORD * p + K9_FLOP_PER_SWEEP) + n_keep * (2 * p * p + K9_FLOP_PER_STORE)
+    else:
+        prep = mmala.prepare(mcmc.data["X"], mcmc.data["y"], **host)
+        args, kernel_fn, plain_fn = (torch.from_numpy(prep["scal"]).to(dev), mcmc.n_chains), \
+            mmala.mmala_sweeps_kernel, mmala.mmala_sweeps_plain
+        kw = dict(p=p, n_obs=float(N), **mh)
+        short, chunk = dict(n_burn=20, n_keep=30, n_thin=1), 8
+        gen = mmala_mcmc(dev, wide, n_burn=M_GEN_BURN, n_iter=M_GEN_ITER)
+        n_in = prep["scal"].size
+
+        def flop(n_sweeps, n_keep):
+            return n_sweeps * k8_flop_per_sweep(p)
+    err, plain_ms, ess = mh_checks(tag, mcmc, res, "beta", kernel_fn, plain_fn, args, kw, short, gen, "beta", chunk,
+                                   exact=mmala_posterior(wide))
+    entry = mh_times(smi, tag, mcmc, kernel_fn, args, kw, dict(n_burn=mcmc.n_burn, n_keep=mcmc.n_iter, n_thin=1),
+                     short, flop, n_in, p, ess, acc, plain_ms, reps=3)
+    return {"launches": launches[kernel], "max_abs_err": err, "acceptance_pct": acc, **entry}
+
+
 def main():
     smi = device_phase()
     dev = torch.device("cuda", 0)
@@ -1108,7 +1450,14 @@ def main():
     k6 = linreg_phase(dev, smi)
     torch.cuda.empty_cache()
     k5 = linreg_wide_phase(dev, smi)
+    torch.cuda.empty_cache()
+    k7 = rw_phase(dev, smi, "rw")
+    k7_box = rw_phase(dev, smi, "rw_box")
+    k8 = mmala_phase(dev, smi, wide=False)
+    torch.cuda.empty_cache()
+    k9 = mmala_phase(dev, smi, wide=True)
     k4 = {"route": "cuda", "source": "openmcmc_tpu_torch/csrc/gmrf_smoother.cu", "replaces": REPLACES["gmrf_smoother"]}
+    k7_src = {"route": "cuda", "source": "openmcmc_tpu_torch/csrc/random_walk.cu", "replaces": REPLACES["random_walk"]}
     kernels = [
         {"name": "spectral_smoother", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/spectral_smoother.cu",
          "replaces": REPLACES["spectral_smoother"], "launches": launches["spectral_smoother"],
@@ -1122,6 +1471,12 @@ def main():
          "replaces": REPLACES["linreg"], **k6},
         {"name": "spectral_linreg", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/spectral_linreg.cu",
          "replaces": REPLACES["spectral_linreg"], **k5},
+        {"name": "random_walk", **k7_src, **k7},
+        {"name": "random_walk_truncated", **k7_src, **k7_box},
+        {"name": "mmala", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/mmala.cu", "replaces": REPLACES["mmala"],
+         **k8},
+        {"name": "spectral_mmala", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/spectral_mmala.cu",
+         "replaces": REPLACES["spectral_mmala"], **k9},
     ]
     # prng_draws and truncnorm_draws are not launched by any path: their device
     # functions run inlined in the smoother kernels, and these kernels only

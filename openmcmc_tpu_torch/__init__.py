@@ -9,8 +9,13 @@ random-number layer (``csrc/philox.cuh``, ``csrc/prng.cuh``), and multi-chain
 diagnostics; and Bayesian linear regression: ``LinearCombination`` means, the
 generic driver's dense conjugate step, and the fused engines with an unrolled
 Cholesky (``csrc/linreg.cu``, p <= 16) and in eigencoordinates
-(``csrc/spectral_linreg.cu``, p <= 256). Everything off those paths raises
-``NotImplementedError`` naming its ROADMAP.md item.
+(``csrc/spectral_linreg.cu``, p <= 256); and the Metropolis family: the
+distributions' gradients and negative Hessians, ``RandomWalk``,
+``RandomWalkLoop`` and ``ManifoldMALA`` in the generic driver, and the fused
+engines for random-walk Metropolis (``csrc/random_walk.cu``) and constant-metric
+manifold MALA (``csrc/mmala.cu``, p <= 16; ``csrc/spectral_mmala.cu``,
+p <= 256). Everything off those paths raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 
 Importing the package sets the full-fp32 matmul invariant once: no TF32 anywhere,
 matching the JAX package's ``Precision.HIGHEST`` pinning.

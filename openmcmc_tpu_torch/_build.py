@@ -30,8 +30,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gmrf_smoother.cu", "linreg.cu", "prng_draws.cu", "spectral_linreg.cu", "spectral_smoother.cu",
-           "tridiag_canonical.cu")
+SOURCES = ("gmrf_smoother.cu", "linreg.cu", "mmala.cu", "prng_draws.cu", "random_walk.cu", "spectral_linreg.cu",
+           "spectral_mmala.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
 HEADERS = ("layout.cuh", "philox.cuh", "prng.cuh", "spectral_store.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -123,6 +123,12 @@ def library() -> ctypes.CDLL:
     lib.linreg_launch.restype = ctypes.c_int
     lib.spectral_linreg_launch.argtypes = [_P] * 12
     lib.spectral_linreg_launch.restype = ctypes.c_int
+    lib.random_walk_launch.argtypes = [_P] * 8
+    lib.random_walk_launch.restype = ctypes.c_int
+    lib.mmala_launch.argtypes = [_P] * 8
+    lib.mmala_launch.restype = ctypes.c_int
+    lib.spectral_mmala_launch.argtypes = [_P] * 12
+    lib.spectral_mmala_launch.restype = ctypes.c_int
     return lib
 
 

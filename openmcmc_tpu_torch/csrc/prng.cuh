@@ -1,7 +1,8 @@
 // Device sampling functions over Philox bits: the CUDA counterpart of the TPU
 // kernels' in-kernel random-number layer, openmcmc_tpu/fused/prng.py
 // (uniform :178, normal_icdf :244, erfinv_poly :310, gamma_mt2 :262,
-// gamma_mt :372, _mt_rounds :159, erf_poly :295, truncnorm_draw :339).
+// gamma_mt :372, _mt_rounds :159, erf_poly :295, truncnorm_draw :339,
+// truncnorm_logpdf :353).
 //
 // Every expression keeps the JAX function's operation order and float32
 // constants, and the library is compiled with --fmad=false, so a kernel rounds
@@ -66,6 +67,17 @@ __device__ __forceinline__ float truncnorm_from_bits(float mu, float scale, floa
   float z = 1.41421356237309515f * erfinv_poly(fminf(fmaxf(t, -1.0f + 1e-7f), 1.0f - 1e-7f));
   z = fminf(fmaxf(z, a), b);
   return fminf(fmaxf(mu + scale * z, lo), hi);
+}
+
+// Truncated-normal log-density on [lo, hi] (truncnorm_logpdf :353): the
+// polynomial-erf box mass clamped at 1e-30, and -inf outside [lo, hi].
+__device__ __forceinline__ float truncnorm_logpdf(float x, float mu, float scale, float lo, float hi) {
+  const float a = (lo - mu) / scale;
+  const float b = (hi - mu) / scale;
+  const float z = (x - mu) / scale;
+  const float mass = 0.5f * (erf_poly(b * 0.707106781186547573f) - erf_poly(a * 0.707106781186547573f));
+  const float dens = -0.5f * (z * z + 1.83787706640934534f) - logf(scale) - logf(fmaxf(mass, 1e-30f));
+  return (x >= lo && x <= hi) ? dens : __int_as_float(0xff800000);  // -inf
 }
 
 // One Marsaglia-Tsang Gamma draw as the TPU kernels make it: a fixed number of

@@ -2,13 +2,13 @@
 
 Ported so far: :class:`Normal` in precision form with an Identity or
 LinearCombination mean and an Identity or ScaledMatrix precision: its density,
-its draw, box-truncated or not, and the analytic gradient with respect to a
-linear mean parameter (what the conjugate NormalNormal step reads). A truncated
+its draw, box-truncated or not, and its gradient and negative Hessian (analytic
+for the response and a linear mean parameter, autodiff otherwise). A truncated
 Normal keeps the reference's unrenormalised density (-inf outside the box) and
 draws by rejection-initialised red-black Gibbs; ``n_active`` waits for
-reversible jump and the other gradients for the Metropolis family (ROADMAP.md
-queue 1: reversible jump; Metropolis family). Entries may carry leading chain
-axes: state[name] is (p, n) or (..., p, n), and densities keep the batch axes.
+reversible jump (ROADMAP.md queue 1: reversible jump). Entries may carry leading
+chain axes: state[name] is (p, n) or (..., p, n), and densities keep the batch
+axes.
 """
 
 from __future__ import annotations
@@ -138,17 +138,32 @@ class Normal(LocationScale):
         return log_p if by_observation else torch.sum(log_p, dim=-1)
 
     def grad_log_p(self, state: dict, param: str, hessian_required: bool = True):
-        """Gradient (and Hessian) of log_p with respect to a parameter of a linear
-        mean: with A = d mean / d param (p, N) and W the precision, the gradient
-        is A W r over the summed residual columns r, and the Hessian
-        n (A W) A^T, n the replicate columns; chain-batched, (..., p, 1) and
-        (..., p, p). The response and autodiff cases come with the Metropolis
-        family."""
+        """Gradient and NEGATIVE Hessian of log_p, chain-batched, in the JAX
+        package's three cases:
+
+        - the response, with W the precision and r = x - mean: gradient -W r,
+          Hessian W densified, Kronecker'd with I_n over n > 1 replicate columns;
+        - a parameter of a linear mean, with A = d mean / d param (p, N): gradient
+          A W r over the summed residual columns r, Hessian n (A W) A^T, n the
+          replicate columns ((..., p, 1) and (..., p, p));
+        - anything else by autodiff through log_p (the base class).
+
+        A Hessian built from data alone stays unbatched and broadcasts."""
+        if param == self.response:
+            Q = st.as_structured(self.precision.predictor(state))
+            grad = -st.matvec(Q, state[self.response] - self.mean.predictor(state))
+            if not hessian_required:
+                return grad
+            hessian = st.to_dense(Q)
+            n = state[param].shape[-1]
+            if n > 1:
+                eye = torch.eye(n, dtype=hessian.dtype, device=hessian.device)
+                p = hessian.shape[-1]
+                hessian = (hessian[..., :, None, :, None] * eye[:, None, :]).reshape(hessian.shape[:-2] + (p * n, p * n))
+            return grad, hessian
         linear = isinstance(self.mean, LinearCombination) and param in self.mean.get_grad_param_list()
         if not linear or param in self.precision.get_grad_param_list():
-            raise NotImplementedError(
-                f"Normal.grad_log_p with respect to {param!r} is not ported yet (ROADMAP.md queue 1: Metropolis family)"
-            )
+            return super().grad_log_p(state, param, hessian_required=hessian_required)
         Q = st.as_structured(self.precision.predictor(state))
         r = torch.sum(state[self.response] - self.mean.predictor(state), dim=-1, keepdim=True)
         grad_param = self.mean.grad(state, param)  # (p, N)

@@ -31,6 +31,10 @@ class Gamma(Distribution):
     shape: Parameter
     rate: Parameter
 
+    #: log_p is a sum of per-replicate-column terms, each reading only that column
+    #: of the response (RandomWalkLoop's vectorized path reads this)
+    column_factorized = True
+
     def __init__(self, response: str, shape, rate, n_active=None):
         if n_active is not None:
             raise NotImplementedError(

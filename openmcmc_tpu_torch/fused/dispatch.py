@@ -12,9 +12,14 @@ engine (kernel K4) for a tridiagonal P0 with p > 1024 (``fused_gmrf_smoother``)
 or a box-truncated latent prior (``fused_gmrf_smoother_truncated``); then the
 linear-regression matcher, to the unrolled-Cholesky engine for p <= 16
 (``fused_linreg``, kernel K6) or the spectral one for p <= 256
-(``fused_linreg_spectral``, kernel K5). The other matchers (random walk, mMALA,
-mixture, reversible jump) and mesh sharding are not ported (ROADMAP.md queue 1:
-Metropolis family, mixture, reversible jump, parallel).
+(``fused_linreg_spectral``, kernel K5); then the random-walk matcher
+(``fused_random_walk``, kernel K7) and the mMALA matcher, to the engine with a
+precomputed Cholesky for p <= 16 (``fused_mmala``, kernel K8) or the spectral one
+for p <= 256 (``fused_mmala_spectral``, kernel K9). The Metropolis runners return
+the JAX package's statistics: accept and proposal counts over burn-in and
+sampling, and the adapted log_step. The mixture and reversible-jump matchers,
+resume and mesh sharding are not ported (ROADMAP.md queue 1: mixture,
+reversible jump, operations, parallel).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from openmcmc_tpu_torch.distributions.univariate import Gamma
 from openmcmc_tpu_torch.linalg import structured as st
 from openmcmc_tpu_torch.parameters import Identity, LinearCombination, ScaledMatrix
 from openmcmc_tpu_torch.samplers.conjugate import NormalGamma, NormalNormal
+from openmcmc_tpu_torch.samplers.metropolis import ManifoldMALA, RandomWalk, RandomWalkLoop
 
 
 def _scalar(mcmc, name) -> Optional[float]:
@@ -87,7 +93,7 @@ def match_fused_engine(mcmc) -> Optional[Callable]:
         matched.n_burn = mcmc.n_burn * mcmc.n_thin
         matched.n_thin = 1
         matched._kernel_thin = mcmc.n_thin
-    for matcher in (_match_smoother, _match_linreg):
+    for matcher in (_match_smoother, _match_linreg, _match_rw, _match_mmala):
         runner = matcher(matched)
         if runner is not None:
             if mcmc.model.response is not None and not _fitted_ok(mcmc, runner):
@@ -315,4 +321,183 @@ def _match_linreg(mcmc) -> Optional[Callable]:
 
     run.engine_name = engine_name
     run.store_keys = frozenset({latent, lam_name, tau_name})
+    return run
+
+
+def _counts(mcmc, out, n_chains):
+    """The accept and proposal counts of a Metropolis runner, over burn-in and
+    sampling sweeps (the generic driver's counting window)."""
+    n_prop = mcmc.n_burn + mcmc.n_iter * _kernel_thin(mcmc)
+    return {"accept": out["accept_total"].to(torch.int32),
+            "proposal": torch.full((n_chains,), n_prop, dtype=torch.int32, device=out["accept_total"].device)}
+
+
+def _match_rw(mcmc) -> Optional[Callable]:
+    """A single RandomWalk on a (vector) location h: y ~ N(h, diag(tau)^-1),
+    h ~ N(mu, diag(lam)^-1), constant hyperparameters, p <= 32."""
+    if len(mcmc.samplers) != 1:
+        return None
+    rw = mcmc.samplers[0]
+    if not isinstance(rw, RandomWalk) or isinstance(rw, RandomWalkLoop) or rw.state_update_function is not None:
+        return None
+    step_arr = rw.step_size.double().numpy().reshape(-1)
+    h = rw.param
+    h_dist = mcmc.model.get(h)
+    y_dist = None
+    for key, dist in mcmc.model.items():
+        if key != h and isinstance(dist, Normal) and _identity_mean_name(dist) == h:
+            y_dist = dist
+    if y_dist is None or not isinstance(h_dist, Normal) or y_dist.truncated or h_dist.truncated:
+        return None
+    # replicate columns of y are fine: the engine reduces y to per-dimension sums
+    y = mcmc.data.get(y_dist.response)
+    if y is None or isinstance(y, st.STRUCTURED_TYPES):
+        return None
+    from openmcmc_tpu_torch.fused.random_walk import MAX_P, run_fused_rw
+
+    p = y.shape[0]
+    if p > MAX_P or step_arr.size not in (1, p):
+        return None
+    step_vec = np.broadcast_to(step_arr, (p,))
+    # only the matched distributions: an extra term would be silently ignored
+    if set(mcmc.model.keys()) != {y_dist.response, h}:
+        return None
+
+    def precision_diag(dist):
+        """The (p,) diagonal of an Identity-form constant diagonal precision, else None."""
+        if not isinstance(dist.precision, Identity):
+            return None
+        value = mcmc.data.get(dist.precision.form)
+        if value is None:
+            return None
+        try:
+            arr = st.to_dense(st.as_structured(value)).detach().cpu().double().numpy()
+        except TypeError:
+            return None
+        if arr.shape == (1, 1):
+            return np.full((p,), float(arr[0, 0]))
+        if arr.shape != (p, p) or np.any(arr != np.diag(np.diag(arr))):
+            return None
+        return np.diag(arr)
+
+    tau = precision_diag(y_dist)
+    lam = precision_diag(h_dist)
+    mu_name = _identity_mean_name(h_dist)
+    mu = None if mu_name is None else _column(mcmc.data.get(mu_name))
+    h0 = _column(mcmc.initial_chain_state.get(h))
+    if tau is None or lam is None or mu is None or h0 is None:
+        return None
+    if mu.size not in (1, p) or h0.size not in (1, p):
+        return None  # replicated h columns need the generic driver
+    mu = np.broadcast_to(mu.astype(np.float64), (p,))
+    h0 = np.broadcast_to(h0.astype(np.float64), (p,))
+    domain = None
+    if rw.domain_limits is not None:
+        dl = np.asarray(rw.domain_limits, np.float64).reshape(-1, 2)
+        if dl.shape[0] not in (1, p):
+            return None
+        dl = np.broadcast_to(dl, (p, 2))
+        domain = (dl[:, 0].copy(), dl[:, 1].copy())
+        # the start must lie inside the proposal box, where the reverse density is defined
+        if np.any(h0 <= domain[0]) or np.any(h0 >= domain[1]):
+            return None
+
+    def run(seed, bit_source=None):
+        nc = mcmc.n_chains
+        out = run_fused_rw(
+            seed, y, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=nc, mu=mu, tau=tau, lam=lam, step=step_vec,
+            h0=h0, adapt_step=rw.adapt_step, target_accept=rw.target_accept, adapt_rate=rw.adapt_rate,
+            domain=domain, n_thin=_kernel_thin(mcmc), device=mcmc.device, bit_source=bit_source,
+        )
+        stats = {h: _counts(mcmc, out, nc)}
+        if rw.adapt_step:
+            # the engine stores log(scale * step[0]) and the generic nudge is one
+            # scalar shared by all components, so the vector log_step is
+            # log(step) + log(scale), in the step's at-least-2-D shape
+            base = torch.log(rw.step_size).to(out["log_step"].device)
+            scale_log = out["log_step"] - float(np.log(step_vec[0]))
+            stats[h]["log_step"] = scale_log[:, None, None] + base[None, :, :]
+        return {h: out["h"][..., None]}, out["log_post"], stats
+
+    run.engine_name = "fused_random_walk"
+    run.store_keys = frozenset({h})
+    return run
+
+
+def _match_mmala(mcmc) -> Optional[Callable]:
+    """A single ManifoldMALA on beta: y ~ N(X beta, (tau P)^-1), beta ~ N(mu0,
+    (lam Plam)^-1), P and Plam Diagonal, tau and lam constant data (the metric is
+    then constant). Runs the Cholesky engine for p <= 16 and the spectral one for
+    p <= 256."""
+    if len(mcmc.samplers) != 1:
+        return None
+    mm = mcmc.samplers[0]
+    if not isinstance(mm, ManifoldMALA) or mm.active_count is not None or mm.step_size.numel() != 1:
+        return None
+    latent = mm.param
+    b_dist = mcmc.model.get(latent)
+    y_dist = None
+    for key, dist in mcmc.model.items():
+        if (key != latent and isinstance(dist, Normal) and type(dist.mean) is LinearCombination
+                and list(dist.mean.form_dict) == [latent]):
+            y_dist = dist
+    if y_dist is None or not isinstance(b_dist, Normal) or y_dist.truncated or b_dist.truncated:
+        return None
+    if _identity_mean_name(b_dist) is None:
+        return None
+    sp_y = _scaled_precision(y_dist)
+    sp_b = _scaled_precision(b_dist)
+    if sp_y is None or sp_b is None:
+        return None
+    ptau = mcmc.data.get(sp_y[0])
+    plam = mcmc.data.get(sp_b[0])
+    if not isinstance(ptau, st.Diagonal) or not isinstance(plam, st.Diagonal):
+        return None
+    tau = _scalar(mcmc, sp_y[1])
+    lam = _scalar(mcmc, sp_b[1])  # constants: in the data, not the chain state
+    X = mcmc.data.get(y_dist.mean.form_dict[latent])
+    y = _column(mcmc.data.get(y_dist.response))
+    mu0 = _column(mcmc.data.get(_identity_mean_name(b_dist)))
+    if any(v is None for v in (tau, lam, X, y, mu0)) or isinstance(X, st.STRUCTURED_TYPES):
+        return None
+    # only the matched distributions: an extra term would be silently ignored
+    if set(mcmc.model.keys()) != {y_dist.response, latent}:
+        return None
+    from openmcmc_tpu_torch.fused.mmala import MAX_P, run_fused_mmala
+    from openmcmc_tpu_torch.fused.spectral import MAX_P as SPECTRAL_MAX_P, run_spectral_mmala
+
+    p = X.shape[1]
+    if p > SPECTRAL_MAX_P:
+        return None
+    beta0 = mcmc.initial_chain_state.get(latent)
+    if beta0 is not None:
+        beta0 = _column(beta0)
+        if beta0 is None:
+            return None  # replicated beta columns need the generic driver
+    if p <= MAX_P:
+        runner, engine_name = run_fused_mmala, "fused_mmala"
+    else:
+        runner, engine_name = run_spectral_mmala, "fused_mmala_spectral"
+    # host preparation in float64 from host copies, once per match
+    X_host = X.detach().cpu().numpy()
+    ptau_host, plam_host = ptau.diag_.detach().cpu().numpy(), plam.diag_.detach().cpu().numpy()
+
+    def run(seed, bit_source=None):
+        nc = mcmc.n_chains
+        extra = {}
+        if mm.adapt_step:
+            extra = dict(adapt_step=True, target_accept=mm.target_accept, adapt_rate=mm.adapt_rate)
+        out = runner(
+            seed, X_host, y, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=nc, tau=tau, lam=lam,
+            step=float(mm.step_size.reshape(())), ptau_diag=ptau_host, plam_diag=plam_host, mu0=mu0, beta0=beta0,
+            n_thin=_kernel_thin(mcmc), device=mcmc.device, bit_source=bit_source, **extra,
+        )
+        stats = {latent: _counts(mcmc, out, nc)}
+        if mm.adapt_step:
+            # the generic init_stats carries log_step in the step's (1, 1) shape
+            stats[latent]["log_step"] = out["log_step"].reshape(nc, 1, 1)
+        return {latent: out["beta"][..., None]}, out["log_post"], stats
+
+    run.engine_name = engine_name
+    run.store_keys = frozenset({latent})
     return run

@@ -5,8 +5,9 @@ the kernels (``csrc/philox.cuh``, ``csrc/prng.cuh``); here are their plain
 PyTorch versions, which the CPU path and the CPU tests run, and the wrappers of
 the ``prng_draws`` and ``truncnorm_draws`` kernels, which expose the device
 functions over a tensor of counters so that they can be checked on their own.
-``gamma_mt_elem`` and ``truncnorm_logpdf`` are not on a ported path yet (they
-come with the random-walk, mixture and reversible-jump kernels).
+``truncnorm_logpdf`` runs inlined in the random-walk kernel (K7);
+``gamma_mt_elem`` is not on a ported path yet (it comes with the mixture and
+reversible-jump kernels).
 
 Bits. The TPU kernels draw from the chip's hardware generator, reseeded per grid
 program. The port draws from Philox4x32-10 with a counter layout that does not
@@ -181,6 +182,19 @@ def truncnorm_draw(mu, scale, lo, hi, shape, bit_source):
     z = _SQRT2 * erfinv_poly(torch.clamp(t, -1.0 + 1e-7, 1.0 - 1e-7))
     z = torch.minimum(torch.maximum(z, a), b)
     return torch.minimum(torch.maximum(mu + scale * z, lo), hi)
+
+
+def truncnorm_logpdf(x, mu, scale, lo, hi):
+    """Truncated-normal log-density on [lo, hi] with the polynomial erf: the box
+    mass 0.5 (erf(b / sqrt 2) - erf(a / sqrt 2)) clamped at 1e-30, and -inf
+    outside [lo, hi] (a reverse proposal density at a point outside the box
+    must force a rejection)."""
+    a = (lo - mu) / scale
+    b = (hi - mu) / scale
+    z = (x - mu) / scale
+    mass = 0.5 * (erf_poly(b * _INV_SQRT2) - erf_poly(a * _INV_SQRT2))
+    dens = -0.5 * (z * z + LOG_2PI) - torch.log(scale) - torch.log(torch.clamp(mass, min=1e-30))
+    return torch.where((x >= lo) & (x <= hi), dens, -torch.inf)
 
 
 def _mt_squeeze(d, c, value, rate, rounds, bit_source):

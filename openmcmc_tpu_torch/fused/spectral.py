@@ -1,6 +1,6 @@
-"""Spectral engines: whole Gibbs runs in pencil eigencoordinates.
+"""Spectral engines: whole runs in pencil eigencoordinates.
 
-Port of the smoother and linear-regression halves of
+Port of the smoother, linear-regression and mMALA parts of
 ``openmcmc_tpu/fused/spectral.py`` (``_eigenbasis`` :76; the smoother
 ``run_spectral_smoother`` :568 with kernel ``_make_smoother_kernel`` :319, K1;
 linear regression ``run_spectral_linreg`` :265 with kernel
@@ -32,6 +32,19 @@ then (tau, lam) as one Gamma pair and beta = V w on stored sweeps.
 tensors and takes :func:`spectral_linreg_sweeps_plain` for CPU tensors. Its three
 sums run in one fixed order in both (:func:`window_sums`): tau's form cancels
 heavily, and another order would move tau by far more than rounding.
+
+Constant-metric manifold MALA (``run_spectral_mmala`` :867 with kernel
+``_make_mmala_kernel`` :655, K9) takes the same pencil with the metric
+A = tau G + lam diag(plam), eigenvalues d = tau s + lam, and runs every proposal,
+density and accept elementwise in w = V^-1 beta, with beta = V w on stored
+sweeps. :func:`spectral_mmala_sweeps` launches ``csrc/spectral_mmala.cu`` for
+CUDA tensors and takes :func:`spectral_mmala_sweeps_plain` for CPU tensors; its
+three sums run in K5's window order. Two departures: the log target is taken
+about its mode, log_const - 1/2 sum d (w - vw/d)^2 with the constant in float64 on
+the host, where the JAX kernel sums -1/2 (sum d w^2 + yPy) + sum vw w in float32,
+which at yPy ~ 5e7 (N = 2048, P = 100 I) rounds by more than the accept ratio
+itself; and the adapted log step is one value per chain, where the JAX kernel
+carries it at full (p_pad, chains) shape for a Mosaic limitation.
 
 Not ported, because they exist for the TPU only: the sublane/lane padding and its
 mask, the VMEM lane-block budget, the double-buffered store DMAs, the
@@ -511,4 +524,246 @@ def run_spectral_linreg(
         *rows, **{k: float(np.float32(prep[k])) for k in ("yPy", "logdet_plam", "logdet_ptau")},
         n_obs=float(prep["n_obs"]), a_lam=float(a_lam), b_lam=float(b_lam), a_tau=float(a_tau), b_tau=float(b_tau),
         n_burn=int(n_burn), n_keep=int(n_iter), n_thin=int(n_thin), bit_source=bit_source,
+    )
+
+
+# ---------------------------------------------------------------------------
+# constant-metric manifold MALA (kernel K9)
+# ---------------------------------------------------------------------------
+
+
+def prepare_mmala(X, y, tau=1.0, lam=1.0, ptau_diag=None, plam_diag=None, mu0=None, beta0=None):
+    """Host preparation of :func:`run_spectral_mmala`, all f64 numpy, as the JAX
+    package does it: the pencil of G = X'PX and diag(plam), V' diag(plam) V = I
+    and V'GV = diag(s), the metric eigenvalues ``d`` = tau s + lam, ``vw`` = V'v
+    with v = tau X'Py + lam plam mu0, ``w0`` = V' plam beta0, and ``yPy`` =
+    tau y'Py + lam mu0'Plam mu0, ``logdet_tauP``, ``logdet_lamPlam``,
+    ``half_logdetA`` = 1/2 sum log d, ``n_obs``."""
+    X = _f64(X)
+    y = _f64(y).reshape(-1)
+    n_obs, p = X.shape
+    if p > MAX_P:
+        raise ValueError(f"spectral mMALA supports p <= {MAX_P}, got {p}")
+    ptau = np.ones(n_obs) if ptau_diag is None else _f64(ptau_diag).reshape(-1)
+    plam = np.ones(p) if plam_diag is None else _f64(plam_diag).reshape(-1)
+    mu0 = np.zeros(p) if mu0 is None else _f64(mu0).reshape(-1)
+    beta0 = np.zeros(p) if beta0 is None else _f64(beta0).reshape(-1)
+    XtP = X.T * ptau[None, :]
+    V, s = _eigenbasis(XtP @ X, plam)
+    d = tau * s + lam
+    v = tau * (XtP @ y) + lam * plam * mu0
+    return {
+        "V": V, "d": d, "vw": V.T @ v, "w0": V.T @ (plam * beta0),
+        "yPy": float(tau * np.sum(y * ptau * y) + lam * np.sum(mu0 * plam * mu0)),
+        "logdet_tauP": float(n_obs * np.log(tau) + np.sum(np.log(ptau))),
+        "logdet_lamPlam": float(p * np.log(lam) + np.sum(np.log(plam))),
+        "half_logdetA": float(0.5 * np.sum(np.log(d))), "n_obs": n_obs,
+    }
+
+
+def mmala_step_constants(p: int, step: float) -> dict:
+    """The float32 constants of a fixed (not adapted) step, folded on the host in
+    float64 as the JAX kernel folds them: s, s^2, s^2/2 and p/2 (log 2 pi + log s^2)."""
+    s2 = step * step
+    return {"step": step, "s2": s2, "c_pull": 0.5 * s2, "c_norm": 0.5 * p * (prng.LOG_2PI + math.log(s2))}
+
+
+def spectral_mmala_sweeps_plain(seed, V, d, cw, isd, w0, n_chains, *, log_const, half_logdetA, step, adapt,
+                                target, rate, n_burn, n_keep, n_thin=1, bit_source=None):
+    """Plain PyTorch version of the K9 kernel: all sweeps for all chains.
+
+    ``V`` is the (p, p) float32 eigenbasis (beta rows); ``d`` and ``w0`` are (p,)
+    as :func:`prepare_mmala` gives them, ``cw`` = vw / d (the posterior mean in
+    w) and ``isd`` = rsqrt(d), computed once by the caller so that kernel and
+    plain version read the same values; ``log_const`` and ``half_logdetA``
+    float32 values (:func:`mmala_inputs`). In w = V^-1 beta every step is
+    elementwise:
+
+        mu(w) = w + s^2/2 (cw - w),   w' = mu(w) + s z / sqrt(d),
+        log pi(w) = log_const - 1/2 sum d (w - cw)^2,
+        log q(x | m) = 1/2 sum log d - p/2 (log 2 pi + log s^2) - sum d (x - m)^2 / (2 s^2),
+
+    with the three sums in K5's fixed window order (:func:`window_sums`); with
+    ``adapt`` a per-chain log step, nudged during burn-in. Draws come from
+    Philox unless ``bit_source(sweep, site, shape)`` supplies them (CPU tensors
+    only). Returns ``beta`` (chains, n_keep, p), ``log_post``/``accept``
+    (chains, n_keep) and ``accept_total``/``log_step`` (chains,)."""
+    device = V.device
+    if bit_source is not None and device.type != "cpu":
+        raise ValueError("an injected bit source replaces Philox on the CPU only")
+    p = V.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    dv, cw, isd, w0 = (torch.as_tensor(t, **f32)[None, :] for t in (d, cw, isd, w0))
+    const, half_logdet = torch.tensor(log_const, **f32), torch.tensor(half_logdetA, **f32)
+    fixed = mmala_step_constants(p, step)
+    w = torch.zeros((n_chains, p), **f32) + w0
+    r = w - cw
+    lp = const - 0.5 * window_sums((dv * r * r)[:, None, :])[:, 0]
+    acc = torch.zeros(n_chains, **f32)
+    log_step = torch.full((n_chains,), math.log(step), **f32)
+    out_b = torch.empty((n_chains, n_keep, p), **f32)
+    out = {k: torch.empty((n_chains, n_keep), **f32) for k in ("log_post", "accept")}
+    for it in range(n_burn + n_keep * n_thin):
+        if bit_source is None:
+            sites = prng.sweep_bits(seed, n_chains, it, [p, 1], device)
+        else:
+            sites = [bit_source(it, k, (n_chains, width)) for k, width in enumerate((p, 1))]
+        if adapt:
+            step_v = torch.exp(log_step)
+            s2 = step_v * step_v
+            c_pull = 0.5 * s2
+            c_norm = 0.5 * p * (prng.LOG_2PI + 2.0 * log_step)
+            step_v, c_pull = step_v[:, None], c_pull[:, None]
+        else:
+            step_v, s2, c_pull, c_norm = (fixed[k] for k in ("step", "s2", "c_pull", "c_norm"))
+        z = prng.normal_icdf((n_chains, p), lambda shape: sites[0])
+        mu_cur = w + c_pull * (cw - w)
+        w_prop = mu_cur + step_v * z * isd
+        r_tgt = w_prop - cw
+        r_fwd = w - (w_prop + c_pull * (cw - w_prop))
+        r_rev = w_prop - mu_cur
+        sums = window_sums(torch.stack([dv * r_tgt * r_tgt, dv * r_fwd * r_fwd, dv * r_rev * r_rev], dim=1))
+        lp_prop = const - 0.5 * sums[:, 0]
+        q_fwd = half_logdet - c_norm - 0.5 * sums[:, 1] / s2
+        q_rev = half_logdet - c_norm - 0.5 * sums[:, 2] / s2
+        log_accept = lp_prop - lp + q_fwd - q_rev
+        accept = torch.log(prng.uniform((n_chains, 1), lambda shape: sites[1])[:, 0]) < log_accept
+        w = torch.where(accept[:, None], w_prop, w)
+        lp = torch.where(accept, lp_prop, lp)
+        acc = acc + accept.to(torch.float32)
+        if adapt and it < n_burn:
+            alpha = torch.exp(torch.clamp(log_accept, max=0.0))
+            log_step = log_step + rate * (alpha - target)
+        idx = store_index(it, n_burn, n_thin)
+        if idx < 0:
+            continue
+        out_b[:, idx] = torch.matmul(w, V.T)
+        out["log_post"][:, idx] = lp
+        out["accept"][:, idx] = accept.to(torch.float32)
+    return {"beta": out_b, **out, "accept_total": acc, "log_step": log_step}
+
+
+class MmalaWideParams(ctypes.Structure):
+    """Mirror of ``struct MmalaWideParams`` in ``csrc/spectral_mmala.cu``."""
+
+    _fields_ = [
+        ("seed", ctypes.c_uint32),
+        ("n_chains", ctypes.c_int32),
+        ("p", ctypes.c_int32),
+        ("n_sweeps", ctypes.c_int32),
+        ("n_burn", ctypes.c_int32),
+        ("n_thin", ctypes.c_int32),
+        ("n_keep", ctypes.c_int32),
+        ("sum_windows", ctypes.c_int32),
+        ("sum_lo", ctypes.c_int32),
+        ("adapt", ctypes.c_int32),
+        ("log_const", ctypes.c_float),
+        ("half_logdetA", ctypes.c_float),
+        ("half_p", ctypes.c_float),
+        ("log_step0", ctypes.c_float),
+        ("step", ctypes.c_float),
+        ("s2", ctypes.c_float),
+        ("c_pull", ctypes.c_float),
+        ("c_norm", ctypes.c_float),
+        ("target", ctypes.c_float),
+        ("rate", ctypes.c_float),
+    ]
+
+
+def _check_mmala_inputs(V, vectors: dict, n_chains):
+    p = V.shape[0]
+    if V.dim() != 2 or V.shape[1] != p or p > MAX_P:
+        raise ValueError(f"V must be (p, p) with p <= {MAX_P}, got {tuple(V.shape)}")
+    if n_chains < 1:
+        raise ValueError("need n_chains >= 1")
+    for name, t in (("V", V), *vectors.items()):
+        if name != "V" and tuple(t.shape) != (p,):
+            raise ValueError(f"{name} must have shape ({p},), got {tuple(t.shape)}")
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != V.device:
+            raise ValueError(f"{name}: expected a contiguous float32 tensor on {V.device}")
+
+
+def spectral_mmala_sweeps_kernel(seed, V, d, cw, isd, w0, n_chains, *, log_const, half_logdetA, step, adapt,
+                                 target, rate, n_burn, n_keep, n_thin=1):
+    """Launch ``csrc/spectral_mmala.cu`` on CUDA tensors (arguments and results
+    as :func:`spectral_mmala_sweeps_plain`). Launches on the current stream,
+    does not synchronise."""
+    _check_mmala_inputs(V, {"d": d, "cw": cw, "isd": isd, "w0": w0}, n_chains)
+    if V.device.type != "cuda":
+        raise ValueError(f"spectral mMALA kernel: expected CUDA tensors, got {V.device}")
+    if n_keep < 1 or n_burn < 0 or n_thin < 1:
+        raise ValueError("need n_keep >= 1, n_burn >= 0 and n_thin >= 1")
+    from openmcmc_tpu_torch import _build
+
+    p = V.shape[0]
+    n_win, lo = sum_windows(p)
+    prm = MmalaWideParams(
+        seed=int(seed) & 0xFFFFFFFF, n_chains=n_chains, p=p, n_sweeps=n_burn + n_keep * n_thin, n_burn=n_burn,
+        n_thin=n_thin, n_keep=n_keep, sum_windows=n_win, sum_lo=lo, adapt=int(bool(adapt)), log_const=log_const,
+        half_logdetA=half_logdetA, half_p=0.5 * p, log_step0=math.log(step), target=target, rate=rate,
+        **mmala_step_constants(p, step),
+    )
+    VT = V.t().contiguous()
+    out_b = torch.empty((n_chains, n_keep, p), dtype=torch.float32, device=V.device)
+    out = {k: torch.empty((n_chains, n_keep), dtype=torch.float32, device=V.device) for k in ("log_post", "accept")}
+    last = {k: torch.empty((n_chains,), dtype=torch.float32, device=V.device) for k in ("accept_total", "log_step")}
+    lib = _build.library()
+    with torch.cuda.device(V.device):
+        stream = torch.cuda.current_stream(V.device).cuda_stream
+        err = lib.spectral_mmala_launch(
+            ctypes.byref(prm), VT.data_ptr(), d.data_ptr(), cw.data_ptr(), isd.data_ptr(), w0.data_ptr(), out_b.data_ptr(), out["log_post"].data_ptr(), out["accept"].data_ptr(),
+            last["accept_total"].data_ptr(), last["log_step"].data_ptr(), stream,
+        )
+    spectral_mmala_sweeps_kernel.launches += 1
+    _build.check(err, "spectral_mmala")
+    return {"beta": out_b, **out, **last}
+
+
+spectral_mmala_sweeps_kernel.launches = 0
+
+
+def spectral_mmala_sweeps(seed, V, d, cw, isd, w0, n_chains, *, bit_source=None, **kw):
+    """All sweeps for all chains: the K9 kernel for CUDA tensors, the plain
+    version for CPU tensors. A CUDA call launches the kernel or raises."""
+    if V.device.type == "cuda":
+        if bit_source is not None:
+            raise ValueError("an injected bit source replaces Philox on the CPU only")
+        return spectral_mmala_sweeps_kernel(seed, V, d, cw, isd, w0, n_chains, **kw)
+    if V.device.type != "cpu":
+        raise ValueError(f"spectral mMALA: unsupported device {V.device}")
+    _check_mmala_inputs(V, {"d": d, "cw": cw, "isd": isd, "w0": w0}, n_chains)
+    return spectral_mmala_sweeps_plain(seed, V, d, cw, isd, w0, n_chains, bit_source=bit_source, **kw)
+
+
+def mmala_inputs(prep: dict, device):
+    """The K9 tensors of a :func:`prepare_mmala` result on ``device``: V, d,
+    cw = vw / d, isd = rsqrt(d) and w0 (float32), and the scalar keywords: the
+    log target's constant at its mode, log_const = 1/2 (logdet(tau P) - N log 2 pi)
+    + 1/2 (logdet(lam Plam) - p log 2 pi) + 1/2 (sum vw^2 / d - yPy), taken in
+    float64, and half_logdetA."""
+    f32 = dict(dtype=torch.float32, device=device)
+    V, d, vw, w0 = (torch.as_tensor(prep[k], **f32).contiguous() for k in ("V", "d", "vw", "w0"))
+    p, n_obs = prep["V"].shape[0], prep["n_obs"]
+    log_const = (0.5 * (prep["logdet_tauP"] - n_obs * prng.LOG_2PI) + 0.5 * (prep["logdet_lamPlam"] - p * prng.LOG_2PI)
+                 + 0.5 * (float(np.sum(prep["vw"] ** 2 / prep["d"])) - prep["yPy"]))
+    kw = {"log_const": float(np.float32(log_const)), "half_logdetA": float(np.float32(prep["half_logdetA"]))}
+    return (V, d, vw / d, torch.rsqrt(d), w0), kw
+
+
+def run_spectral_mmala(
+    seed, X, y, n_burn, n_iter, n_chains, tau=1.0, lam=1.0, step=1.0, ptau_diag=None, plam_diag=None, mu0=None,
+    beta0=None, adapt_step=False, target_accept=0.574, adapt_rate=0.05, n_thin=1, device="cuda", bit_source=None,
+):
+    """Constant-metric manifold MALA, p <= 256, the whole run in one launch.
+
+    Model, arguments and results as :func:`openmcmc_tpu_torch.fused.mmala.
+    run_fused_mmala`; the host diagonalizes the metric A = tau G + lam diag(plam)
+    once in float64, so every proposal and accept is elementwise in
+    eigencoordinates. ``device`` is the card unless the caller asks for the
+    CPU; ``bit_source(sweep, site, shape)`` replaces Philox (CPU only)."""
+    prep = prepare_mmala(X, y, tau=tau, lam=lam, ptau_diag=ptau_diag, plam_diag=plam_diag, mu0=mu0, beta0=beta0)
+    tensors, kw = mmala_inputs(prep, torch.device(device))
+    return spectral_mmala_sweeps(
+        seed, *tensors, int(n_chains), **kw, step=float(step), adapt=bool(adapt_step), target=float(target_accept),
+        rate=float(adapt_rate), n_burn=int(n_burn), n_keep=int(n_iter), n_thin=int(n_thin), bit_source=bit_source,
     )

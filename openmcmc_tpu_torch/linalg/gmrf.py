@@ -5,11 +5,12 @@ smoother), :func:`sample_normal`, :func:`sample_normal_canonical`,
 :func:`mvn_log_pdf`, and the box-truncated machinery of the generic driver
 (:func:`truncated_normal_rv`, the red-black schedule of
 :func:`gibbs_canonical_truncated_normal`, :func:`sample_truncated_normal_rejection`,
-:func:`sample_truncated_normal`), all chain-batched through leading axes (see
-:mod:`openmcmc_tpu_torch.linalg.structured`). The lexicographic truncated
-schedule, ``Permuted`` precisions and ``truncated_normal_log_pdf`` are not ported
-yet (ROADMAP.md queue 1: sparse and permuted priors); ``precision_temporal``
-comes with the examples (queue 1: examples and entry).
+:func:`sample_truncated_normal`) and the truncated proposal density of the
+random walk (:func:`truncated_normal_log_pdf`), all chain-batched through leading
+axes (see :mod:`openmcmc_tpu_torch.linalg.structured`). The lexicographic
+truncated schedule and ``Permuted`` precisions are not ported yet (ROADMAP.md
+queue 1: sparse and permuted priors); ``precision_temporal`` comes with the
+examples (queue 1: examples and entry).
 
 Randomness: where the JAX package takes a key, the port takes a :class:`Key`,
 the run's ``torch.Generator`` plus the Philox key and call counter of kernel
@@ -177,6 +178,36 @@ def truncated_normal_rv(key: Key, mean, scale, lower=None, upper=None, shape=Non
     if hi is not None:
         out = torch.minimum(out, hi)
     return out
+
+
+def truncated_normal_log_pdf(x, mean, scale, lower=None, upper=None) -> torch.Tensor:
+    """Truncated-normal log-density on [lower, upper], elementwise broadcast; -inf
+    outside the box (``None`` is an open side)."""
+    x = torch.as_tensor(x)
+    if not x.dtype.is_floating_point:
+        x = x.to(torch.float32)
+    f = dict(dtype=x.dtype, device=x.device)
+    mean = torch.as_tensor(mean, **f)
+    scale = torch.as_tensor(scale, **f)
+    lo = None if lower is None else torch.as_tensor(lower, **f)
+    hi = None if upper is None else torch.as_tensor(upper, **f)
+    a, b = _standardize_bounds(mean, scale, lo, hi)
+    a, b = torch.as_tensor(a, **f), torch.as_tensor(b, **f)
+    z = (x - mean) / scale
+    log_phi = -0.5 * (z * z + _LOG_2PI) - torch.log(scale)
+    inside = (z >= a) & (z <= b)
+    return torch.where(inside, log_phi - _log_ndtr_diff(a, b), -torch.inf)
+
+
+def _log_ndtr_diff(a, b):
+    """log(Phi(b) - Phi(a)) for a < b, stable in both tails: with both bounds in
+    the upper tail it takes the survival form Phi(-a) - Phi(-b)."""
+    use_flip = (a + b) > 0
+    lo = torch.where(use_flip, -b, a)
+    hi = torch.where(use_flip, -a, b)
+    log_hi = torch.special.log_ndtr(hi)
+    log_lo = torch.special.log_ndtr(lo)
+    return log_hi + torch.log1p(-torch.exp(log_lo - log_hi))
 
 
 def gibbs_canonical_truncated_normal(key: Key, b, Q, x, lower=None, upper=None, schedule: str = "lex"):

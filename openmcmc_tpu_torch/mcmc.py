@@ -14,12 +14,15 @@ generic driver when none matches, as in the JAX package; ``"fused"`` requires a
 match. The fused engines so far: ``fused_smoother_spectral`` (kernel K1),
 ``fused_gmrf_smoother`` (a tridiagonal prior with p > 1024) and
 ``fused_gmrf_smoother_truncated`` (a box-truncated latent prior), both kernel K4,
-and for linear regression ``fused_linreg`` (p <= 16, kernel K6) and
-``fused_linreg_spectral`` (p <= 256, kernel K5).
+for linear regression ``fused_linreg`` (p <= 16, kernel K6) and
+``fused_linreg_spectral`` (p <= 256, kernel K5), and for the Metropolis family
+``fused_random_walk`` (kernel K7), ``fused_mmala`` (p <= 16, kernel K8) and
+``fused_mmala_spectral`` (p <= 256, kernel K9).
 
 Randomness: the generic driver draws from one ``torch.Generator`` on the device,
 seeded from ``seed`` (torch draws: Gamma variates, prior init, non-tridiagonal
-Normal noise, truncated-normal uniforms), and K3 from Philox keyed by ``seed & 0x7FFFFFFF`` with a call
+Normal noise, truncated-normal uniforms, Metropolis proposals and accept
+uniforms), and K3 from Philox keyed by ``seed & 0x7FFFFFFF`` with a call
 counter per (sweep, sampler). The streams differ from the JAX package's
 threefry ones; its draws agree in distribution.
 
@@ -100,7 +103,9 @@ class MCMCResult:
 
     store[name] has shape (n_chains, n_iter) + state_shape; log_post is
     (n_chains, n_iter); final_state[name] is each sampled entry's last draw,
-    (n_chains,) + state_shape."""
+    (n_chains,) + state_shape; stats[param] holds each sampler's per-chain
+    statistics (a Metropolis sampler's accept and proposal counts over burn-in
+    and sampling, its adapted log_step)."""
 
     store: Dict[str, torch.Tensor]
     log_post: torch.Tensor
@@ -108,6 +113,13 @@ class MCMCResult:
     final_state: Dict[str, torch.Tensor]
     #: which execution path produced this result: "generic" or a fused engine name
     engine: str = "generic"
+
+    @property
+    def acceptance(self) -> Dict[str, torch.Tensor]:
+        """Per Metropolis sampler, the percentage of proposals accepted per chain."""
+        from openmcmc_tpu_torch.samplers.metropolis import acceptance_rate
+
+        return {name: acceptance_rate(s) for name, s in self.stats.items() if "proposal" in s}
 
 
 class MCMC:
@@ -173,6 +185,29 @@ class MCMC:
         if unknown:
             raise ValueError(f"store_names {unknown} are not sampled parameters; samplers update {chain_names}")
         self.store_names = list(store_names)
+        self._carry_logp = self._carried_logp_params()
+
+    def _carried_logp_params(self) -> frozenset:
+        """Params whose Metropolis samplers get a carried current-state
+        log-density: those whose conditional-model inputs no other sampler of the
+        sweep modifies (always so for a single sampler). A per-run decision: the
+        samplers key off the ``logp`` entry the driver seeds in their stats."""
+        from openmcmc_tpu_torch.samplers.metropolis import ManifoldMALA, RandomWalk, RandomWalkLoop
+
+        carried = set()
+        for s in self.samplers:
+            if not isinstance(s, (RandomWalk, ManifoldMALA)) or isinstance(s, RandomWalkLoop):
+                continue
+            deps = set()
+            for dist in s.model.values():
+                deps.update(dist.param_list)
+            others = set()
+            for o in self.samplers:
+                if o is not s:
+                    others.update(getattr(o, "updated_names", [o.param]))
+            if not (deps & others):
+                carried.add(s.param)
+        return frozenset(carried)
 
     def run(self, resume: Optional[MCMCResult] = None, engine: str = "generic", bit_source=None) -> MCMCResult:
         """Run burn-in and sampling for all chains.
@@ -230,6 +265,19 @@ class MCMC:
                 out[name] = dist.unscaled_log_det(self.data)
         return out
 
+    def _init_stats(self, chain_state: dict) -> dict:
+        """Every sampler's ``init_stats()`` with a leading chain axis, on the
+        driver's device, plus the carried log-density of the initial state for
+        the samplers :meth:`_carried_logp_params` names."""
+        n = self.n_chains
+        stats = {s.param: {k: v.to(self.device).expand((n,) + tuple(v.shape)).clone() for k, v in s.init_stats().items()}
+                 for s in self.samplers}
+        full = self._full_state(chain_state)
+        for s in self.samplers:
+            if s.param in self._carry_logp:
+                stats[s.param]["logp"] = s.initial_carried_logp(full)
+        return stats
+
     def _sweep(self, generator, seed: int, sweep: int, chain_state: dict, stats: dict, adapt: bool):
         """One pass over all samplers. Sampler i of pass ``sweep`` gets Philox call
         counter sweep * len(samplers) + i: host integers, no read from the card."""
@@ -256,7 +304,7 @@ class MCMC:
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
         seed = self.seed & 0x7FFFFFFF
         chain_state = self._init_chain_state(generator)
-        stats = {s.param: {} for s in self.samplers}
+        stats = self._init_stats(chain_state)
         log_dets = self._log_dets()
         sweep = 0
         for _ in range(self.n_burn * self.n_thin):

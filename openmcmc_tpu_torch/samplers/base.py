@@ -11,7 +11,7 @@ Samplers are also the structure the fused-engine dispatcher matches on.
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Tuple
+from typing import Dict, Tuple
 
 from openmcmc_tpu_torch.model import Model
 
@@ -31,6 +31,14 @@ class Sampler(ABC):
         self.param = param
         self.model = model.conditional(param)
 
+    def init_stats(self) -> Dict:
+        """Initial statistics of one chain (empty by default); the driver gives
+        every entry a leading chain axis."""
+        return {}
+
     @abstractmethod
     def step(self, key, state: dict, stats: dict, adapt: bool = False) -> Tuple[dict, dict]:
-        """Draw a new value for ``self.param``; return the updated state and stats."""
+        """Draw a new value for ``self.param``; return the updated state and stats.
+
+        ``adapt`` is True during burn-in sweeps, where samplers with a tunable
+        proposal (Metropolis step sizes) adapt it; False while sampling."""

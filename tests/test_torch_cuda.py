@@ -291,3 +291,81 @@ def test_spectral_linreg_kernel_matches_plain(dev, N, p):
     assert spectral.spectral_linreg_sweeps_kernel.launches == before + 1
     assert tuple(got["beta"].shape) == (100, 5, p)
     _assert_kernel_matches_plain(got, want)
+
+
+def _assert_mh_matches_plain(got, want, draw):
+    """A Metropolis kernel against its plain version: draws rtol 1e-4 atol 1e-5,
+    log_post 1e-4 relative, every accept decision and count equal, log_step
+    within float32 rounding."""
+    torch.testing.assert_close(got[draw], want[draw], rtol=1e-4, atol=1e-5)
+    assert torch.equal(got["accept"], want["accept"]) and torch.equal(got["accept_total"], want["accept_total"])
+    torch.testing.assert_close(got["log_step"], want["log_step"], rtol=1e-5, atol=1e-6)
+    assert torch.all(torch.abs(got["log_post"] - want["log_post"])
+                     <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
+
+
+@pytest.mark.parametrize("p,variant", [(1, "plain"), (5, "truncated"), (32, "truncated_adapting"),
+                                       (12, "adapting")],
+                         ids=["p1_plain", "p5_truncated", "p32_truncated_adapting", "p12_adapting"])
+def test_random_walk_kernel_matches_plain(dev, p, variant):
+    """K7 against its plain version on the same Philox bits: 300 chains (ragged
+    against the 32-thread blocks), n_burn 6, n_keep 5, n_thin 2, unrolled
+    (p <= 8) and looped (p > 8) instantiations, both proposal variants."""
+    from openmcmc_tpu_torch.fused import random_walk as rw
+
+    rng = np.random.default_rng(p)
+    box = (np.full(p, -1.0), np.full(p, 1.5)) if variant.startswith("truncated") else None
+    scal, kw = rw.prepare(rng.normal(0.5, 1.0, (p, 8)), mu=0.1 * rng.normal(size=p), tau=rng.uniform(0.5, 2.0, p),
+                          lam=rng.uniform(0.5, 2.0, p), step=rng.uniform(0.2, 0.8, p), h0=0.1 * rng.normal(size=p),
+                          domain=box, device=dev)
+    kw.update(adapt=variant.endswith("adapting"), target=0.3, rate=0.1, n_burn=6, n_keep=5, n_thin=2)
+    before = rw.rw_sweeps_kernel.launches
+    got = rw.rw_sweeps(7, scal, 300, **kw)
+    want = rw.rw_sweeps_plain(7, scal, 300, **kw)
+    torch.cuda.synchronize()
+    assert rw.rw_sweeps_kernel.launches == before + 1
+    assert tuple(got["h"].shape) == (300, 5, p)
+    _assert_mh_matches_plain(got, want, "h")
+    if box is not None:
+        assert float(got["h"].min()) >= -1.0 and float(got["h"].max()) <= 1.5
+
+
+@pytest.mark.parametrize("p,adapt", [(5, False), (12, True), (16, False)], ids=["p5", "p12_adapting", "p16"])
+def test_mmala_kernel_matches_plain(dev, p, adapt):
+    """K8 against its plain version on the same Philox bits: 300 chains, n_burn
+    6, n_keep 5, n_thin 2; the unrolled (p <= 8) and looped instantiations."""
+    from openmcmc_tpu_torch.fused import mmala
+
+    X, y, extra = _linreg_problem(dev, 60, p, p)
+    prep = mmala.prepare(X, y, tau=1.5, lam=0.7, ptau_diag=extra["ptau_diag"], plam_diag=extra["plam_diag"],
+                         mu0=extra["mu"])
+    scal = torch.from_numpy(prep["scal"]).to(dev)
+    kw = dict(p=p, n_obs=60.0, step=0.6, adapt=adapt, target=0.5, rate=0.1, n_burn=6, n_keep=5, n_thin=2)
+    before = mmala.mmala_sweeps_kernel.launches
+    got = mmala.mmala_sweeps(4, scal, 300, **kw)
+    want = mmala.mmala_sweeps_plain(4, scal, 300, **kw)
+    torch.cuda.synchronize()
+    assert mmala.mmala_sweeps_kernel.launches == before + 1
+    assert tuple(got["beta"].shape) == (300, 5, p)
+    _assert_mh_matches_plain(got, want, "beta")
+
+
+@pytest.mark.parametrize("N,p,adapt", [(80, 24, True), (600, 250, False)], ids=["p24_smem_adapting", "p250_global"])
+def test_spectral_mmala_kernel_matches_plain(dev, N, p, adapt):
+    """K9 against its plain version on the same Philox bits: 100 chains, n_burn
+    4, n_keep 5, n_thin 2; V in shared memory at p = 24, in global memory at the
+    ragged p = 250 (eight 32-row sum windows)."""
+    from openmcmc_tpu_torch.fused import spectral
+
+    X, y, extra = _linreg_problem(dev, N, p, p)
+    prep = spectral.prepare_mmala(X, y, tau=1.5, lam=0.7, ptau_diag=extra["ptau_diag"],
+                                  plam_diag=extra["plam_diag"], mu0=extra["mu"])
+    tensors, kw = spectral.mmala_inputs(prep, dev)
+    kw.update(step=0.5, adapt=adapt, target=0.5, rate=0.1, n_burn=4, n_keep=5, n_thin=2)
+    before = spectral.spectral_mmala_sweeps_kernel.launches
+    got = spectral.spectral_mmala_sweeps(3, *tensors, 100, **kw)
+    want = spectral.spectral_mmala_sweeps_plain(3, *tensors, 100, **kw)
+    torch.cuda.synchronize()
+    assert spectral.spectral_mmala_sweeps_kernel.launches == before + 1
+    assert tuple(got["beta"].shape) == (100, 5, p)
+    _assert_mh_matches_plain(got, want, "beta")
