@@ -53,6 +53,27 @@ analytic posterior:
   adaptation, 4096 chains, 200 burn-in and 500 stored sweeps), engine
   ``fused_mmala_spectral``, the spectral mMALA kernel (K9).
 
+Then the Gaussian mixture, each cell through ``MCMC.run(engine="auto")`` with
+one launch of the mixture kernel (K10), that kernel held against its plain
+version on a short run at full width, and the posterior means of the sorted
+component means and their precisions held against a generic twin's (the
+port's MixtureAllocation, RandomWalkLoop or NormalNormal and NormalGamma, no
+kernel); before them ``gamma_elem`` holds K10's elementwise Gamma device
+function against its plain version, and ``mixture_small`` K10 against its plain
+version on every value and every stored allocation, on both variants, K = 2 and
+16, n = 200 and 3000:
+
+- ``mixture``: bench_all.py's mixture (n = 200, K = 2, RandomWalkLoop step 0.3
+  on [-20, 20]^2, 4096 chains, 500 burn-in and 1000 stored sweeps), engine
+  ``fused_mixture``; run once more with the default store set (the allocation
+  Z included, 3.3 GB), whose log_post must equal ``Model.log_p`` at the stored
+  (Z, means, lams);
+- ``mixture_conjugate``: the same model with conjugate means, engine
+  ``fused_mixture_conjugate``;
+- ``mixture_large``: bench_all.py's streamed-scale mixture (n = 100,000,
+  K = 16, conjugate means, 256 chains, 50 burn-in and 150 stored sweeps),
+  engine ``fused_mixture_conjugate``.
+
 Each path runs with every launch count set to 0 just before it and read just
 after. The kernels are timed against their plain versions with CUDA events,
 beside the least time the card could take for the same work (``bound_ms``).
@@ -89,6 +110,8 @@ REPLACES = {
     "random_walk": "openmcmc_tpu/fused/random_walk.py:46",
     "mmala": "openmcmc_tpu/fused/mmala.py:49",
     "spectral_mmala": "openmcmc_tpu/fused/spectral.py:655",
+    "mixture": "openmcmc_tpu/fused/mixture.py:107",
+    "gamma_elem_draws": "openmcmc_tpu/fused/prng.py:218",
 }
 # the K4 cells: bench_all.py's truncated_smoother (bench_all.py:468, :762) and the
 # flagship model past the spectral engine's tridiagonal limit (p > 1024)
@@ -115,6 +138,11 @@ M_N, M_P, M_CHAINS, M_BURN, M_ITER = 100, 5, 4096, 200, 1000
 M_GEN_BURN, M_GEN_ITER = 200, 300
 MW_N, MW_P, MW_CHAINS, MW_BURN, MW_ITER, MW_SEED = 2048, 256, 4096, 200, 500, 7
 MW_GEN_CHAINS, MW_GEN_BURN, MW_GEN_ITER = 256, 50, 150
+# the mixture cells: bench_all.py's mixture (:284-323) and mixture_conjugate
+# (:327-367) at their fused rows' width (:616-649), and mixture_large (:407-461);
+# their generic twins run fewer chains at the cell's depth
+X_N, X_K, X_CHAINS, X_BURN, X_ITER, X_GEN_CHAINS = 200, 2, 4096, 500, 1000, 1024
+XL_N, XL_K, XL_CHAINS, XL_BURN, XL_ITER, XL_GEN_CHAINS = 100_000, 16, 256, 50, 150, 64
 # H100 SXM data sheet: HBM bandwidth and the float32 rate outside the tensor cores
 # (TF32 is excluded: the port keeps full float32, ROADMAP.md's invariant)
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
@@ -143,6 +171,10 @@ K8_FLOP_PER_SWEEP = 30       # csrc/mmala.cu: the accept, the adapted step's con
 K9_FLOP_PER_COORD = 55       # csrc/spectral_mmala.cu: inverse-CDF normal 30, proposal 6, the four sums 19
 K9_FLOP_PER_SWEEP = 40       # the totals, target, both proposal densities, accept and nudge
 K9_FLOP_PER_STORE = 2        # the store adds 2 p^2 for beta = V w
+K10_FLOP_PER_POINT_COMP = 15  # csrc/mixture.cu: the log-likelihood 9, max 1, exp and its argument 2, tot 1, cum 2
+K10_FLOP_PER_POINT = 8        # the uniform and its scaling, cnt / 2, the four partial sums
+K10_FLOP_PER_COMP = 120       # per sweep: the means update, one Gamma round, the log-posterior terms and sums
+K2G_FLOP_PER_ROW = 240        # csrc/prng_draws.cu gamma_elem_draws: 4 gamma_mt_elem, one round each (60)
 
 
 def k6_flop_per_sweep(p):
@@ -356,12 +388,15 @@ def _wrappers():
     from openmcmc_tpu_torch.fused import gmrf_smoother, linreg, mmala, prng, random_walk, spectral
     from openmcmc_tpu_torch.linalg import tridiag
 
+    from openmcmc_tpu_torch.fused import mixture
+
     return {"spectral_smoother": spectral.smoother_sweeps_kernel, "prng_draws": prng.draws,
             "tridiag_canonical": tridiag.sample_canonical_tridiag_kernel,
             "gmrf_smoother": gmrf_smoother.gmrf_smoother_kernel, "truncnorm_draws": prng.truncnorm_draws,
             "linreg": linreg.linreg_sweeps_kernel, "spectral_linreg": spectral.spectral_linreg_sweeps_kernel,
             "random_walk": random_walk.rw_sweeps_kernel, "mmala": mmala.mmala_sweeps_kernel,
-            "spectral_mmala": spectral.spectral_mmala_sweeps_kernel}
+            "spectral_mmala": spectral.spectral_mmala_sweeps_kernel, "mixture": mixture.mixture_sweeps_kernel,
+            "gamma_elem_draws": prng.gamma_elem_draws}
 
 
 def reset_launches():
@@ -1428,6 +1463,282 @@ def mmala_phase(dev, smi, wide):
     return {"launches": launches[kernel], "max_abs_err": err, "acceptance_pct": acc, **entry}
 
 
+def gamma_elem_phase(dev):
+    """gamma_elem_draws (gamma_mt_elem, the Gamma draw K10 inlines) against its
+    plain version over mixture_large's precision counters (site 2 on, the four
+    groups of K = 16 per chain and sweep), shapes a* in [1, 4000) skewed to 1."""
+    from openmcmc_tpu_torch.fused import prng
+
+    n_sweeps, groups = XL_BURN + XL_ITER, XL_K // 4
+    rows = torch.arange(XL_CHAINS * n_sweeps * groups, dtype=torch.int64)
+    ctr = torch.stack([rows // (n_sweeps * groups), rows // groups % n_sweeps, torch.full_like(rows, 2),
+                       rows % groups], 1).to(torch.int32).to(dev).contiguous()
+    n = ctr.shape[0]
+    gen = torch.Generator().manual_seed(3)
+    a = (1.0 + 3999.0 * torch.rand((n, 4), generator=gen) ** 3).to(dev)
+    rate = (0.5 + 5000.0 * torch.rand((n, 4), generator=gen)).to(dev)
+    got = prng.gamma_elem_draws(SEED, ctr, a, rate)
+    want = prng.gamma_elem_draws_plain(SEED, ctr, a, rate)
+    torch.cuda.synchronize()
+    rel = float(torch.max(torch.abs(got - want) / torch.abs(want)))
+    if not bool(torch.all(torch.isfinite(got) & (got > 0))) or rel > 1e-6:
+        raise AssertionError(f"gamma_elem_draws: differs from the plain version by {rel:.3g} (relative)")
+    err = float(torch.max(torch.abs(got - want)))
+    ms = cuda_ms(lambda: prng.gamma_elem_draws(SEED, ctr, a, rate), 5)
+    plain_ms = cuda_ms(lambda: prng.gamma_elem_draws_plain(SEED, ctr, a, rate), 3)
+    bound_ms, bound_by = bound(n * 64, n * K2G_FLOP_PER_ROW)
+    log("gamma_elem", f"{n} rows: within {rel:.3g} rel of the plain version (limit 1e-6); mean of Gamma(a*) * rate "
+        f"over a* {float((got * rate / a).mean()):.5f} (1 expected); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def mixture_mcmc(dev, kind, n_chains=None, store_names=("means", "lams")):
+    """The mixture cells in the port: bench_all.py's ``mixture`` (n = 200, K = 2,
+    numpy seed 0, RandomWalkLoop step 0.3 on [-20, 20]^2), ``mixture_conjugate``
+    (its conjugate means) or ``mixture_large`` (n = 100,000, K = 16, conjugate
+    means, components at linspace(-22.5, 22.5) with sd 0.7), seed 0.
+    ``store_names=None`` keeps the driver's default store set, Z included."""
+    from openmcmc_tpu_torch import MCMC, Model
+    from openmcmc_tpu_torch.distributions import Categorical, Gamma, Normal
+    from openmcmc_tpu_torch.linalg import structured as st
+    from openmcmc_tpu_torch.parameters import MixtureParameterMatrix, MixtureParameterVector
+    from openmcmc_tpu_torch.samplers import MixtureAllocation, NormalGamma, NormalNormal, RandomWalkLoop
+
+    rng = np.random.default_rng(0)
+    if kind == "mixture_large":
+        n, k, chains, n_burn, n_iter = XL_N, XL_K, XL_CHAINS, XL_BURN, XL_ITER
+        true_means = np.linspace(-22.5, 22.5, k)
+        y = rng.normal(true_means[rng.integers(0, k, n)], 0.7).reshape(n, 1)
+        z0 = np.clip(((y.ravel() + 24.0) / 3.0).astype(np.int32), 0, k - 1).reshape(n, 1)
+        means0 = (true_means + rng.normal(0, 0.3, k)).reshape(k, 1)
+    else:
+        n, k, chains, n_burn, n_iter = X_N, X_K, X_CHAINS, X_BURN, X_ITER
+        alloc = rng.integers(0, k, n)
+        y = rng.normal(np.array([-2.0, 3.0])[alloc], 1.0 / np.sqrt(np.array([4.0, 1.0])[alloc])).reshape(n, 1)
+        z0, means0 = (y > 0).astype(np.int32), np.array([-1.0, 1.0]).reshape(k, 1)
+    mdl = Model([
+        Normal("y", mean=MixtureParameterVector(param="means", allocation="Z"),
+               precision=MixtureParameterMatrix(param="lams", allocation="Z")),
+        Categorical("Z", prob="prior"),
+        Normal("means", mean="mu0", precision="P0"),
+        Gamma("lams", shape="a0", rate="b0"),
+    ])
+    if kind == "mixture":
+        means_sampler = RandomWalkLoop("means", mdl, step=0.3, domain_limits=np.tile([[-20.0, 20.0]], (k, 1)))
+    else:
+        means_sampler = NormalNormal("means", mdl)
+    samplers = [MixtureAllocation("Z", mdl, response_param="y"), means_sampler, NormalGamma("lams", mdl)]
+    state = {"y": y, "Z": z0, "means": means0, "lams": np.ones((k, 1)), "prior": np.full((n, k), 1.0 / k),
+             "mu0": np.zeros((k, 1)), "P0": st.Diagonal(torch.full((k,), 0.01)), "a0": np.full((k, 1), 2.0),
+             "b0": np.full((k, 1), 1.0)}
+    if kind != "mixture_large":
+        state["prior"] = np.full((n, k), 0.5)
+    return MCMC(state, samplers, mdl, n_burn=n_burn, n_iter=n_iter, n_chains=n_chains or chains, seed=0,
+                store_names=None if store_names is None else list(store_names), device=dev)
+
+
+def mixture_inputs(mcmc, dev):
+    """K10's inputs as the dispatcher feeds them, and its keywords."""
+    from openmcmc_tpu_torch.fused import mixture
+    from openmcmc_tpu_torch.samplers import NormalNormal
+
+    data, init = mcmc.data, mcmc.initial_chain_state
+    k = data["prior"].shape[1]
+    conjugate = isinstance(mcmc.samplers[1], NormalNormal)
+    domain = None if conjugate else tuple(mcmc.samplers[1].domain_limits.T)
+    scal, packed, kw = mixture.prepare(data["y"], data["prior"], data["mu0"], data["P0"].diag_, data["a0"], data["b0"],
+                                       init["means"], init["lams"], domain=domain, device=dev)
+    kw.update(conjugate=conjugate, step=0.2 if conjugate else float(mcmc.samplers[1].step_size.reshape(())))
+    return (scal, packed, mcmc.n_chains), kw
+
+
+def compare_mixture(got, want):
+    """Per-chain agreement of K10 with its plain version: means and lams (rtol
+    1e-4, atol 1e-5), log_post (1e-4 relative), the accept count and, where
+    stored, every allocation; returns (agreeing chains, max abs err)."""
+    ok = torch.ones(got["means"].shape[0], dtype=torch.bool, device=got["means"].device)
+    err = 0.0
+    for name in ("means", "lams"):
+        ok &= torch.isclose(got[name], want[name], rtol=1e-4, atol=1e-5).flatten(1).all(1)
+        err = max(err, float(torch.max(torch.abs(got[name] - want[name]))))
+    ok &= (torch.abs(got["log_post"] - want["log_post"]) <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0)).all(1)
+    ok &= got["accept_total"] == want["accept_total"]
+    if "z" in want:
+        ok &= (got["z"] == want["z"]).flatten(1).all(1)
+    return int(ok.sum()), err
+
+
+def mixture_small_phase(dev):
+    """K10 against its plain version on the same Philox bits, every value and
+    every stored allocation of every chain: the random walk with a box and the
+    conjugate means, K = 2 and 16, n = 200 and 3000 (past the JAX engine's
+    2048-point resident limit), 256 chains, n_burn 4, n_keep 5, n_thin 2."""
+    from openmcmc_tpu_torch.fused import mixture
+
+    worst = 0.0
+    for k, n, conjugate in ((2, 200, False), (2, 3000, True), (16, 200, True), (16, 3000, False)):
+        rng = np.random.default_rng(k * n)
+        y = np.linspace(-3.0, 3.0, k)[rng.integers(0, k, n)] + rng.normal(0.0, 0.5, n)
+        domain = None if conjugate else (np.full(k, -20.0), np.full(k, 20.0))
+        scal, data, kw = mixture.prepare(y, rng.uniform(0.2, 1.0, (n, k)), 0.0, 0.01, 2.0, 1.0,
+                                         np.linspace(-1.0, 1.0, k), np.ones(k), domain=domain, device=dev)
+        kw.update(conjugate=conjugate, step=0.3, n_burn=4, n_keep=5, n_thin=2, store_z=True)
+        got = mixture.mixture_sweeps_kernel(SEED, scal, data, 256, **kw)
+        want = mixture.mixture_sweeps_plain(SEED, scal, data, 256, **kw)
+        torch.cuda.synchronize()
+        agree, err = compare_mixture(got, want)
+        if agree != 256:
+            raise AssertionError(f"mixture_small: K = {k}, n = {n}: only {agree} of 256 chains equal the plain version")
+        worst = max(worst, err)
+        log("mixture_small", f"K = {k}, n = {n}, {'conjugate' if conjugate else 'random walk with a box'}: all 256 "
+            f"chains equal the plain version (every allocation, values rtol 1e-4), max abs err {err:.3g}; "
+            f"{kw['threads']} threads per chain; accepts {int(got['accept_total'].sum())}")
+    return worst
+
+
+def sorted_draws(res):
+    """The component means sorted per draw, and the lams in the same order
+    (label switching, bench_all.py:694-700): (chains, n_iter, K) each."""
+    means = res.store["means"][..., 0]
+    order = torch.argsort(means, dim=-1)
+    return {"means": torch.gather(means, -1, order), "lams": torch.gather(res.store["lams"][..., 0], -1, order)}
+
+
+def mixture_flop(n, k, threads, n_sweeps):
+    """K10's float32 operations per chain for ``n_sweeps`` sweeps."""
+    return n_sweeps * (n * (K10_FLOP_PER_POINT_COMP * k + K10_FLOP_PER_POINT) + 4 * k * threads + K10_FLOP_PER_COMP * k)
+
+
+def mixture_phase(dev, smi, kind):
+    """One mixture cell: MCMC.run(engine="auto") with one K10 launch and no
+    other, K10 against its plain version on a short run at full width, the
+    sorted posterior means against the generic twin's, for ``mixture`` the run
+    with Z stored and its log_post against Model.log_p, and the times."""
+    from openmcmc_tpu_torch.fused import mixture
+
+    mcmc = mixture_mcmc(dev, kind)
+    engine = "fused_mixture" if kind == "mixture" else "fused_mixture_conjugate"
+    n_chains, n_iter, k = mcmc.n_chains, mcmc.n_iter, mcmc.data["prior"].shape[1]
+    n = mcmc.data["y"].shape[0]
+    reset_launches()
+    t0 = time.perf_counter()
+    res = mcmc.run(engine="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if res.engine != engine or launches != only("mixture", 1):
+        raise AssertionError(f"{kind}: engine {res.engine}, kernel launches {launches}")
+    for name in ("means", "lams"):
+        v = res.store[name]
+        if tuple(v.shape) != (n_chains, n_iter, k, 1) or not bool(torch.all(torch.isfinite(v))) or v.device.type != DEVICE_TYPE:
+            raise AssertionError(f"{kind}: store {name} {tuple(v.shape)} on {v.device}, or not finite")
+    if tuple(res.log_post.shape) != (n_chains, n_iter) or not bool(torch.all(torch.isfinite(res.log_post))):
+        raise AssertionError(f"{kind}: log_post {tuple(res.log_post.shape)} or not finite")
+    stats = res.stats["means"]
+    acc = None
+    if kind == "mixture":
+        if not bool(torch.all(stats["proposal"] == mcmc.n_burn + n_iter)):
+            raise AssertionError(f"{kind}: proposal counts {stats['proposal'][:4]}")
+        acc = float(res.acceptance["means"].mean())
+    elif stats != {}:
+        raise AssertionError(f"{kind}: conjugate means carry statistics {list(stats)}")
+    fused = moments(sorted_draws(res), 8)
+    ess = float(fused["means"][2].mean())
+    log(kind, f"MCMC.run(engine='auto'): engine {res.engine}, kernel launches {launches}, means "
+        f"{tuple(res.store['means'].shape)}, first run {wall:.3f} s"
+        + ("" if acc is None else f"; acceptance {acc:.2f} %")
+        + f"; sorted means {[round(float(v), 4) for v in fused['means'][0]]}, lams "
+        f"{[round(float(v), 4) for v in fused['lams'][0]]}; mean ESS of the sorted means {ess:.1f} over "
+        f"{n_chains * n_iter} draws")
+    del res
+
+    args, kw = mixture_inputs(mcmc, dev)
+    short = dict(n_burn=1, n_keep=2, n_thin=1)
+    got = mixture.mixture_sweeps_kernel(mcmc.seed, *args, **kw, **short)
+    want, plain_ms = cuda_call_ms(lambda: mixture.mixture_sweeps_plain(mcmc.seed, *args, **kw, **short))
+    agree, err = compare_mixture(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    if agree < 0.999 * n_chains:
+        raise AssertionError(f"{kind}: only {agree} of {n_chains} chains agree with the plain version")
+
+    if kind == "mixture":
+        zm = mixture_mcmc(dev, kind, store_names=None)
+        reset_launches()
+        res = zm.run(engine="auto")
+        torch.cuda.synchronize()
+        z = res.store["Z"]
+        if res.engine != engine or read_launches() != only("mixture", 1) or tuple(z.shape) != (n_chains, n_iter, n, 1) \
+                or z.dtype != torch.int32 or int(z.min()) < 0 or int(z.max()) >= k:
+            raise AssertionError(f"{kind}: the default store set ran {res.engine}, Z {tuple(z.shape)} {z.dtype}")
+        worst_lp = 0.0
+        for c in (0, 1, n_chains - 1):
+            for t in (0, n_iter // 2, n_iter - 1):
+                state = dict(zm.data)
+                state.update({name: res.store[name][c, t] for name in ("Z", "means", "lams")})
+                want_lp = float(zm.model.log_p(state))
+                rel = abs(float(res.log_post[c, t]) - want_lp) / max(1.0, abs(want_lp))
+                worst_lp = max(worst_lp, rel)
+        if not worst_lp <= 1e-4:
+            raise AssertionError(f"{kind}: log_post differs from Model.log_p by {worst_lp:.3g} (relative)")
+        log(kind, f"default store set: one K10 launch, Z {tuple(z.shape)} int32 ({z.numel() * 4 / 1e9:.2f} GB), "
+            f"log_post within {worst_lp:.3g} (relative) of Model.log_p at the stored (Z, means, lams) of 3 chains x 3 "
+            "draws (limit 1e-4)")
+        del res, z, zm
+        torch.cuda.empty_cache()
+
+    gen = mixture_mcmc(dev, kind, n_chains=X_GEN_CHAINS if kind != "mixture_large" else XL_GEN_CHAINS)
+    reset_launches()
+    t0 = time.perf_counter()
+    gen_res = gen.run()
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    if gen_res.engine != "generic" or any(read_launches().values()):
+        raise AssertionError(f"{kind}: the generic twin ran {gen_res.engine} with kernel launches {read_launches()}")
+    zs = moments_z(fused, moments(sorted_draws(gen_res), 8))
+    del gen_res
+    torch.cuda.empty_cache()
+    if not zs < 5.0:
+        raise AssertionError(f"{kind}: sorted posterior means off the generic run's by {zs:.2f} MC sd")
+    log(kind, f"kernel and plain version agree on {agree} of {n_chains} chains at n_burn 1, n_iter 2 (rtol 1e-4), "
+        f"max abs err {err:.3g}; sorted means and lams within {zs:.2f} MC sd of the generic run's (limit 5; "
+        f"generic run of {gen.n_chains} chains, {gen.n_burn} + {gen.n_iter} sweeps, {gen_wall:.3f} s)")
+
+    run_hyp = dict(n_burn=mcmc.n_burn, n_keep=n_iter, n_thin=1)
+    run_ms = cuda_ms(lambda: mixture.mixture_sweeps_kernel(mcmc.seed, *args, **kw, **run_hyp), 3)
+    ms = cuda_ms(lambda: mixture.mixture_sweeps_kernel(mcmc.seed, *args, **kw, **short), 3)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = mcmc.run(engine="auto")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del res
+    e2e = statistics.median(walls)
+
+    def bound_of(n_sweeps, n_keep):
+        n_bytes = 4 * ((3 + k) * n + 9 * k + n_chains * n_keep * (2 * k + 1) + n_chains)
+        n_flop = n_chains * mixture_flop(n, k, kw["threads"], n_sweeps)
+        return (*bound(n_bytes, n_flop), n_flop, n_bytes)
+
+    run_bound = bound_of(mcmc.n_burn + n_iter, n_iter)
+    bound_ms, bound_by, n_flop, n_bytes = bound_of(3, 2)
+    log(kind, f"{smi}: kernel {run_ms:.4f} ms for the whole run (median of 3), bound {run_bound[0]:.4f} ms "
+        f"({run_bound[1]}: {run_bound[2]:.3g} FLOP, {run_bound[3]:.3g} B), {run_ms / run_bound[0]:.1f}x; "
+        f"MCMC.run end to end {1e3 * e2e:.3f} ms (median of 3)")
+    log(kind, f"{smi}: at n_burn 1, n_iter 2: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (the check's call), bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {n_flop:.3g} FLOP, {n_bytes:.3g} B)")
+    log(kind, f"{smi}: ESS/s of the sorted means {ess / (run_ms / 1e3):.4g} on kernel time, {ess / e2e:.4g} end to end")
+    out = {"launches": launches["mixture"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None, "run_ms": run_ms, "run_bound_ms": run_bound[0],
+           "run_bound_by": run_bound[1], "run_e2e_ms": 1e3 * e2e, "ess_per_s": ess / (run_ms / 1e3)}
+    if acc is not None:
+        out["acceptance_pct"] = acc
+    return out, launches["gamma_elem_draws"]
+
+
 def main():
     smi = device_phase()
     dev = torch.device("cuda", 0)
@@ -1456,6 +1767,13 @@ def main():
     k8 = mmala_phase(dev, smi, wide=False)
     torch.cuda.empty_cache()
     k9 = mmala_phase(dev, smi, wide=True)
+    torch.cuda.empty_cache()
+    gamma_elem = gamma_elem_phase(dev)
+    k10_small_err = mixture_small_phase(dev)
+    k10, gamma_elem_launches = {}, 0
+    for kind in ("mixture", "mixture_conjugate", "mixture_large"):
+        k10[kind], n = mixture_phase(dev, smi, kind)
+        gamma_elem_launches += n
     k4 = {"route": "cuda", "source": "openmcmc_tpu_torch/csrc/gmrf_smoother.cu", "replaces": REPLACES["gmrf_smoother"]}
     k7_src = {"route": "cuda", "source": "openmcmc_tpu_torch/csrc/random_walk.cu", "replaces": REPLACES["random_walk"]}
     kernels = [
@@ -1477,6 +1795,9 @@ def main():
          **k8},
         {"name": "spectral_mmala", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/spectral_mmala.cu",
          "replaces": REPLACES["spectral_mmala"], **k9},
+    ] + [
+        {"name": kind, "route": "cuda", "source": "openmcmc_tpu_torch/csrc/mixture.cu", "replaces": REPLACES["mixture"],
+         **entry, "max_abs_err": max(entry["max_abs_err"], k10_small_err)} for kind, entry in k10.items()
     ]
     # prng_draws and truncnorm_draws are not launched by any path: their device
     # functions run inlined in the smoother kernels, and these kernels only
@@ -1488,6 +1809,9 @@ def main():
         {"name": "truncnorm_draws", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/prng_draws.cu",
          "replaces": REPLACES["truncnorm_draws"], "launches": k4_trunc_launches["truncnorm_draws"],
          "inlined_in": "gmrf_smoother", **trunc_draws},
+        {"name": "gamma_elem_draws", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/prng_draws.cu",
+         "replaces": REPLACES["gamma_elem_draws"], "launches": gamma_elem_launches,
+         "inlined_in": "mixture", **gamma_elem},
     ]
     log("done", "every phase passed")
     print(smi)

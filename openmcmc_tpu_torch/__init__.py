@@ -14,8 +14,11 @@ distributions' gradients and negative Hessians, ``RandomWalk``,
 ``RandomWalkLoop`` and ``ManifoldMALA`` in the generic driver, and the fused
 engines for random-walk Metropolis (``csrc/random_walk.cu``) and constant-metric
 manifold MALA (``csrc/mmala.cu``, p <= 16; ``csrc/spectral_mmala.cu``,
-p <= 256). Everything off those paths raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+p <= 256); and the Gaussian mixture: the mixture parameter forms,
+``Categorical``, ``MixtureAllocation`` and the mixture branches of the conjugate
+samplers in the generic driver, and the fused mixture engine
+(``csrc/mixture.cu``). Everything off those paths raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 Importing the package sets the full-fp32 matmul invariant once: no TF32 anywhere,
 matching the JAX package's ``Precision.HIGHEST`` pinning.

@@ -30,8 +30,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gmrf_smoother.cu", "linreg.cu", "mmala.cu", "prng_draws.cu", "random_walk.cu", "spectral_linreg.cu",
-           "spectral_mmala.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
+SOURCES = ("gmrf_smoother.cu", "linreg.cu", "mixture.cu", "mmala.cu", "prng_draws.cu", "random_walk.cu",
+           "spectral_linreg.cu", "spectral_mmala.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
 HEADERS = ("layout.cuh", "philox.cuh", "prng.cuh", "spectral_store.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -129,6 +129,10 @@ def library() -> ctypes.CDLL:
     lib.mmala_launch.restype = ctypes.c_int
     lib.spectral_mmala_launch.argtypes = [_P] * 12
     lib.spectral_mmala_launch.restype = ctypes.c_int
+    lib.gamma_elem_draws_launch.argtypes = [ctypes.c_uint32] + [_P] * 4 + [ctypes.c_int, _P]
+    lib.gamma_elem_draws_launch.restype = ctypes.c_int
+    lib.mixture_launch.argtypes = [_P] * 9
+    lib.mixture_launch.restype = ctypes.c_int
     return lib
 
 

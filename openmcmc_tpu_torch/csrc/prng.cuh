@@ -2,7 +2,7 @@
 // kernels' in-kernel random-number layer, openmcmc_tpu/fused/prng.py
 // (uniform :178, normal_icdf :244, erfinv_poly :310, gamma_mt2 :262,
 // gamma_mt :372, _mt_rounds :159, erf_poly :295, truncnorm_draw :339,
-// truncnorm_logpdf :353).
+// truncnorm_logpdf :353, gamma_mt_elem :218).
 //
 // Every expression keeps the JAX function's operation order and float32
 // constants, and the library is compiled with --fmad=false, so a kernel rounds
@@ -116,6 +116,34 @@ __device__ __forceinline__ float gamma_draw(const GammaSpec& g, float rate, uint
     Philox4 ub = site_block(seed, chain, sweep, (uint32_t)(g.site0 + 2 * g.rounds), 0u);
     float u = uniform_from_bits(ub.x[g.elem]);
     return value / 1.0f * expf(logf(u) / g.a) / rate;
+  }
+  return value / rate;
+}
+
+// Marsaglia-Tsang Gamma(a_star) / rate with an elementwise shape a_star >= 1
+// (gamma_mt_elem :218): GAMMA_ROUNDS = 6 fixed rounds, no shape < 1 boost, and
+// the value d when no round accepts. Round r reads its normal from site
+// site0 + 2r and its uniform from site0 + 2r + 1, element elem of each
+// (Philox block elem / 4, word elem % 4). d and c are computed here in float32
+// from a_star, as the JAX function does; a round after an accepted one cannot
+// change the value, so the loop stops there.
+__device__ __forceinline__ float gamma_mt_elem(float a_star, float rate, uint32_t seed, uint32_t chain,
+                                               uint32_t sweep, uint32_t site0, uint32_t elem) {
+  const float d = a_star - 1.0f / 3.0f;
+  const float c = 1.0f / sqrtf(9.0f * d);
+  float value = d;
+  for (int r = 0; r < 6; ++r) {
+    const Philox4 nb = site_block(seed, chain, sweep, site0 + 2u * r, elem / 4u);
+    const Philox4 ub = site_block(seed, chain, sweep, site0 + 2u * r + 1u, elem / 4u);
+    const float x = normal_icdf_from_bits(nb.x[elem % 4u]);
+    const float t = 1.0f + c * x;
+    const float v = t * (t * t);
+    const float u = uniform_from_bits(ub.x[elem % 4u]);
+    const bool ok = v > 0.0f && logf(u) < 0.5f * x * x + d - d * v + d * logf(v > 0.0f ? v : 1.0f);
+    if (ok) {
+      value = d * v;
+      break;
+    }
   }
   return value / rate;
 }

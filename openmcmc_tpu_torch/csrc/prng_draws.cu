@@ -9,7 +9,9 @@
 // normals, and one (lam, tau)-style Gamma pair drawn exactly as the smoother
 // draws it for chain = counter[0], sweep = counter[1]. Bound: the Philox
 // rounds and logf calls (arithmetic); 36 bytes written per row. A second entry
-// point, truncnorm_draws, does the same for erf_poly and truncnorm_draw.
+// point, truncnorm_draws, does the same for erf_poly and truncnorm_draw, and a
+// third, gamma_elem_draws, for gamma_mt_elem (prng.py:218), which the mixture
+// kernel inlines.
 #include <cuda_runtime.h>
 
 #include "prng.cuh"
@@ -74,5 +76,30 @@ extern "C" int prng_draws_launch(const DrawsParams* prm, const uint32_t* ctr, fl
   const int threads = 256;
   int blocks = (n_rows + threads - 1) / threads;
   prng_draws_kernel<<<blocks, threads, 0, stream>>>(*prm, ctr, uni, nrm, gam, n_rows);
+  return (int)cudaGetLastError();
+}
+
+// gamma_mt_elem (prng.py:218) over counter rows (chain, sweep, site0, group),
+// one thread per row: element j of the row draws Gamma(a_star) / rate at
+// element 4 group + j of the sites site0 .. site0 + 11, as the mixture kernel
+// draws its component precisions.
+__global__ void gamma_elem_draws_kernel(uint32_t seed, const uint32_t* __restrict__ ctr,
+                                        const float* __restrict__ a_star, const float* __restrict__ rate,
+                                        float* __restrict__ out, int n_rows) {
+  int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_rows) return;
+  const uint32_t* c = ctr + 4 * (size_t)row;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const size_t o = 4 * (size_t)row + j;
+    out[o] = gamma_mt_elem(a_star[o], rate[o], seed, c[0], c[1], c[2], 4u * c[3] + (uint32_t)j);
+  }
+}
+
+extern "C" int gamma_elem_draws_launch(uint32_t seed, const uint32_t* ctr, const float* a_star, const float* rate,
+                                       float* out, int n_rows, cudaStream_t stream) {
+  const int threads = 256;
+  int blocks = (n_rows + threads - 1) / threads;
+  gamma_elem_draws_kernel<<<blocks, threads, 0, stream>>>(seed, ctr, a_star, rate, out, n_rows);
   return (int)cudaGetLastError();
 }

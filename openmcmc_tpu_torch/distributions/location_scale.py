@@ -1,9 +1,11 @@
 """Location-scale distributions (port of ``openmcmc_tpu/distributions/location_scale.py``).
 
-Ported so far: :class:`Normal` in precision form with an Identity or
-LinearCombination mean and an Identity or ScaledMatrix precision: its density,
-its draw, box-truncated or not, and its gradient and negative Hessian (analytic
-for the response and a linear mean parameter, autodiff otherwise). A truncated
+Ported so far: :class:`Normal` in precision form with an Identity,
+LinearCombination or MixtureParameterVector mean and an Identity, ScaledMatrix
+or MixtureParameterMatrix precision (a mixture precision is a per-chain
+Diagonal): its density, its draw, box-truncated or not, and its gradient and
+negative Hessian (analytic for the response and a linear mean parameter,
+autodiff otherwise). A truncated
 Normal keeps the reference's unrenormalised density (-inf outside the box) and
 draws by rejection-initialised red-black Gibbs; ``n_active`` waits for
 reversible jump (ROADMAP.md queue 1: reversible jump). Entries may carry leading
@@ -23,9 +25,18 @@ import torch
 from openmcmc_tpu_torch.distributions.base import Distribution
 from openmcmc_tpu_torch.linalg import gmrf
 from openmcmc_tpu_torch.linalg import structured as st
-from openmcmc_tpu_torch.parameters import Identity, LinearCombination, Parameter, ScaledMatrix
+from openmcmc_tpu_torch.parameters import (
+    Identity,
+    LinearCombination,
+    MixtureParameterMatrix,
+    MixtureParameterVector,
+    Parameter,
+    ScaledMatrix,
+)
 
 _LOG_2PI = math.log(2.0 * math.pi)
+_MEAN_TYPES = (Identity, LinearCombination, MixtureParameterVector)
+_PRECISION_TYPES = (Identity, ScaledMatrix, MixtureParameterMatrix)
 
 
 def _coerce(value, allowed, what):
@@ -46,8 +57,8 @@ class LocationScale(Distribution):
 
     def __init__(self, response: str, mean, precision):
         object.__setattr__(self, "response", response)
-        object.__setattr__(self, "mean", _coerce(mean, (Identity, LinearCombination), "mean"))
-        object.__setattr__(self, "precision", _coerce(precision, (Identity, ScaledMatrix), "precision"))
+        object.__setattr__(self, "mean", _coerce(mean, _MEAN_TYPES, "mean"))
+        object.__setattr__(self, "precision", _coerce(precision, _PRECISION_TYPES, "precision"))
 
     @property
     def _dist_params(self) -> List[str]:

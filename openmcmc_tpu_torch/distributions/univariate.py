@@ -1,12 +1,14 @@
 """Univariate distributions (port of ``openmcmc_tpu/distributions/univariate.py``).
 
-Ported so far: :class:`Gamma`'s ``log_p`` and ``sample``, with leading chain
-axes on the entries kept in the result. Poisson, Uniform and Categorical come
-with the mixture and reversible-jump slices (ROADMAP.md queue 1: mixture; reversible jump).
+Ported so far: :class:`Gamma`'s ``log_p`` and ``sample`` and
+:class:`Categorical`'s, with leading chain axes on the entries kept in the
+result. Poisson and Uniform come with the reversible-jump slice (ROADMAP.md
+queue 1: reversible jump).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List
 
@@ -66,3 +68,61 @@ class Gamma(Distribution):
         batch = torch.broadcast_shapes(tuple(batch_shape), a.shape[:-2], b.shape[:-2])
         conc = a.expand(batch + (p, n)).contiguous()
         return torch._standard_gamma(conc, generator=key.generator) / b
+
+
+@dataclass(frozen=True, init=False)
+class Categorical(Distribution):
+    """Categorical (single-trial multinomial) over category indices.
+
+    state[response] is an integer array (..., p, n) of category indices and the
+    probability parameter is (..., p, n_cat). log_p is the log-probability of the
+    observed index sequence, sum_ij log prob[i, x[i, j]], taken by a gather
+    (the JAX package contracts with a one-hot mask, a TPU workaround).
+    ``aggregated=True`` reproduces the reference's multinomial pmf on the counts
+    per dimension, log-multinomial coefficient included, for n > 1 replicates
+    without ``by_observation``."""
+
+    prob: Parameter
+    aggregated: bool
+
+    def __init__(self, response: str, prob, aggregated: bool = False):
+        object.__setattr__(self, "response", response)
+        object.__setattr__(self, "prob", _as_parameter(prob, "prob"))
+        object.__setattr__(self, "aggregated", bool(aggregated))
+
+    @property
+    def _dist_params(self) -> List[str]:
+        return self.prob.get_param_list()
+
+    def log_p(self, state: dict, by_observation: bool = False):
+        x = state[self.response].to(torch.int64)  # (..., p, n)
+        logprob = torch.log(self.prob.predictor(state))  # (..., p, n_cat)
+        n, n_cat = x.shape[-1], logprob.shape[-1]
+        batch = torch.broadcast_shapes(x.shape[:-2], logprob.shape[:-2])
+        if self.aggregated and not by_observation and n > 1:
+            counts = torch.sum(x[..., None] == torch.arange(n_cat, device=x.device), dim=-2).to(logprob.dtype)
+            coeff = math.lgamma(n + 1.0) - torch.sum(torch.lgamma(counts + 1.0), dim=-1)
+            return torch.sum(coeff + torch.sum(counts * logprob, dim=-1), dim=-1)
+        p = x.shape[-2]
+        lp = torch.gather(logprob.expand(batch + (p, n_cat)), -1, x.expand(batch + (p, n)))  # (..., p, n)
+        log_p = torch.sum(lp, dim=-2)
+        return log_p if by_observation else torch.sum(log_p, dim=-1)
+
+    def sample(self, key, state: dict, n: int = 1, batch_shape=()):
+        """Category indices (..., p, n) drawn by inverse CDF from one uniform of
+        the key's generator each (the JAX package draws by
+        ``jax.random.categorical``). The indices are int32, the driver's type for
+        an allocation; the JAX package returns them as floats."""
+        prob = self.prob.predictor(state)
+        batch = torch.broadcast_shapes(tuple(batch_shape), prob.shape[:-2])
+        p, n_cat = prob.shape[-2:]
+        u = torch.rand(batch + (p, n), generator=key.generator, dtype=prob.dtype, device=prob.device)
+        return categorical_icdf(prob.expand(batch + (p, n_cat))[..., None, :], u)
+
+
+def categorical_icdf(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF category index of unnormalized ``weights`` (..., n_cat) for
+    uniforms ``u`` (...): #{k < n_cat - 1 : u * sum(weights) >= cum_k}, int32."""
+    cum = torch.cumsum(weights, dim=-1)
+    target = (u * cum[..., -1])[..., None]
+    return torch.sum(target >= cum[..., :-1], dim=-1).to(torch.int32)

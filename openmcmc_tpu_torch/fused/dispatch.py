@@ -15,11 +15,13 @@ linear-regression matcher, to the unrolled-Cholesky engine for p <= 16
 (``fused_linreg_spectral``, kernel K5); then the random-walk matcher
 (``fused_random_walk``, kernel K7) and the mMALA matcher, to the engine with a
 precomputed Cholesky for p <= 16 (``fused_mmala``, kernel K8) or the spectral one
-for p <= 256 (``fused_mmala_spectral``, kernel K9). The Metropolis runners return
-the JAX package's statistics: accept and proposal counts over burn-in and
-sampling, and the adapted log_step. The mixture and reversible-jump matchers,
-resume and mesh sharding are not ported (ROADMAP.md queue 1: mixture,
-reversible jump, operations, parallel).
+for p <= 256 (``fused_mmala_spectral``, kernel K9); then the Gaussian-mixture
+matcher, to the mixture engine with a random walk on the component means
+(``fused_mixture``) or their conjugate draw (``fused_mixture_conjugate``), both
+kernel K10. The Metropolis runners return the JAX package's statistics: accept
+and proposal counts over burn-in and sampling, and the adapted log_step. The
+reversible-jump matcher, resume and mesh sharding are not ported (ROADMAP.md
+queue 1: reversible jump, operations, parallel).
 """
 
 from __future__ import annotations
@@ -31,10 +33,16 @@ import numpy as np
 import torch
 
 from openmcmc_tpu_torch.distributions.location_scale import Normal
-from openmcmc_tpu_torch.distributions.univariate import Gamma
+from openmcmc_tpu_torch.distributions.univariate import Categorical, Gamma
 from openmcmc_tpu_torch.linalg import structured as st
-from openmcmc_tpu_torch.parameters import Identity, LinearCombination, ScaledMatrix
-from openmcmc_tpu_torch.samplers.conjugate import NormalGamma, NormalNormal
+from openmcmc_tpu_torch.parameters import (
+    Identity,
+    LinearCombination,
+    MixtureParameterMatrix,
+    MixtureParameterVector,
+    ScaledMatrix,
+)
+from openmcmc_tpu_torch.samplers.conjugate import MixtureAllocation, NormalGamma, NormalNormal
 from openmcmc_tpu_torch.samplers.metropolis import ManifoldMALA, RandomWalk, RandomWalkLoop
 
 
@@ -93,7 +101,7 @@ def match_fused_engine(mcmc) -> Optional[Callable]:
         matched.n_burn = mcmc.n_burn * mcmc.n_thin
         matched.n_thin = 1
         matched._kernel_thin = mcmc.n_thin
-    for matcher in (_match_smoother, _match_linreg, _match_rw, _match_mmala):
+    for matcher in (_match_smoother, _match_linreg, _match_rw, _match_mmala, _match_mixture):
         runner = matcher(matched)
         if runner is not None:
             if mcmc.model.response is not None and not _fitted_ok(mcmc, runner):
@@ -500,4 +508,159 @@ def _match_mmala(mcmc) -> Optional[Callable]:
 
     run.engine_name = engine_name
     run.store_keys = frozenset({latent})
+    return run
+
+
+# The JAX engine's padded Z buffer, which its matcher caps at 4 GB
+# (openmcmc_tpu/fused/mixture.py: RESIDENT_N, TILE_N, UNROLL, PAD, pad_unit,
+# _block_b). The port stores Z unpadded, but caps it by the same formula so that
+# both packages pick the same engine for the same run.
+_JAX_RESIDENT_N, _JAX_TILE_N, _JAX_UNROLL, _JAX_PAD = 2048, 1024, 2, 8
+Z_CAP_BYTES = 4 << 30
+
+
+def _jax_z_buffer_bytes(n: int, k_comp: int, n_chains: int, n_iter: int) -> int:
+    """Bytes of the JAX engine's (n_iter, n_pad, chains rounded to its lane
+    block) float32 Z buffer."""
+    stream = n > _JAX_RESIDENT_N
+    n_pad = n + (-n) % (_JAX_UNROLL * _JAX_TILE_N if stream else _JAX_PAD)
+    live = (k_comp + 5 + 2) * (_JAX_TILE_N if stream else n_pad) * 4
+    block = next((b for b in (2048, 1024, 512, 256) if live * b <= (24 << 20)), 128)
+    return 4 * n_iter * n_pad * (n_chains + (-n_chains) % block)
+
+
+def _host_array(value) -> np.ndarray:
+    return value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
+
+
+def _match_mixture(mcmc) -> Optional[Callable]:
+    """The K-component Gaussian mixture:
+
+        y_i ~ N(mu_{Z_i}, 1/lam_{Z_i}),  Z_i ~ Categorical(w_i.),
+        mu ~ N(mu0, diag(p0)^-1),  lam_k ~ Gamma(a0_k, b0_k),
+
+    swept as [MixtureAllocation(Z), RandomWalkLoop(mu) or NormalNormal(mu),
+    NormalGamma(lam)]. Requires constant weights and hyperparameters, K <= 32,
+    n <= 2^20, every a0_k >= 1 (the kernel's elementwise Gamma draw), initial
+    means strictly inside a random walk's box, and store_names within {mu, lam,
+    Z}; storing Z (the driver's default) is capped at the JAX engine's 4 GB.
+    Replicate response columns share each point's allocation."""
+    if len(mcmc.samplers) != 3:
+        return None
+    alloc, rwl, ng = mcmc.samplers
+    conjugate = isinstance(rwl, NormalNormal)
+    if (not isinstance(alloc, MixtureAllocation) or not (conjugate or isinstance(rwl, RandomWalkLoop))
+            or not isinstance(ng, NormalGamma)):
+        return None
+    if not conjugate:
+        if rwl.adapt_step or rwl.state_update_function is not None or rwl.active_count is not None:
+            return None
+        if rwl.step_size.numel() != 1:
+            return None
+    z_name, mu_name, lam_name, y_name = alloc.param, rwl.param, ng.param, alloc.response_param
+    if set(mcmc.model.keys()) != {y_name, z_name, mu_name, lam_name}:
+        return None
+    y_dist = mcmc.model[y_name]
+    if not isinstance(y_dist, Normal) or y_dist.truncated:
+        return None
+    if not (isinstance(y_dist.mean, MixtureParameterVector) and isinstance(y_dist.precision, MixtureParameterMatrix)
+            and y_dist.mean.param == mu_name and y_dist.precision.param == lam_name
+            and y_dist.mean.allocation == z_name and y_dist.precision.allocation == z_name):
+        return None
+    z_dist = mcmc.model[z_name]
+    if not isinstance(z_dist, Categorical) or not isinstance(z_dist.prob, Identity):
+        return None
+    prior, y = mcmc.data.get(z_dist.prob.form), mcmc.data.get(y_name)
+    if prior is None or y is None or isinstance(prior, st.STRUCTURED_TYPES) or isinstance(y, st.STRUCTURED_TYPES):
+        return None
+    prior, yv = _host_array(prior), _host_array(y)
+    if yv.ndim == 1:
+        yv = yv[:, None]
+    if yv.ndim != 2 or prior.ndim != 2:
+        return None
+    from openmcmc_tpu_torch.fused.mixture import MAX_K, MAX_N, run_fused_mixture
+
+    n, k_comp = prior.shape
+    # replicate columns collapse to per-point count, sum and sum of squares
+    if yv.shape[0] != n or k_comp > MAX_K or n > MAX_N:
+        return None
+    if np.any(prior <= 0.0):
+        return None
+
+    mu_dist = mcmc.model[mu_name]
+    if not isinstance(mu_dist, Normal) or mu_dist.truncated:
+        return None
+    if not isinstance(mu_dist.mean, Identity) or not isinstance(mu_dist.precision, Identity):
+        return None
+    mu0, p0_val = mcmc.data.get(mu_dist.mean.form), mcmc.data.get(mu_dist.precision.form)
+    if mu0 is None or p0_val is None:
+        return None
+    if isinstance(p0_val, st.Diagonal):
+        p0 = _host_array(p0_val.diag_)
+    elif isinstance(p0_val, st.STRUCTURED_TYPES):
+        arr = _host_array(st.to_dense(p0_val))
+        if np.any(arr != np.diag(np.diag(arr))):
+            return None
+        p0 = np.diag(arr)
+    else:
+        p0 = _host_array(p0_val).reshape(-1)
+    p0 = np.broadcast_to(np.asarray(p0, np.float64).reshape(-1), (k_comp,))
+    if np.any(p0 <= 0.0):
+        return None
+
+    lam_dist = mcmc.model[lam_name]
+    if (not isinstance(lam_dist, Gamma) or not isinstance(lam_dist.shape, Identity)
+            or not isinstance(lam_dist.rate, Identity)):
+        return None
+    a0, b0 = mcmc.data.get(lam_dist.shape.form), mcmc.data.get(lam_dist.rate.form)
+    if a0 is None or b0 is None:
+        return None
+    a0 = np.broadcast_to(_host_array(a0).astype(np.float64).reshape(-1), (k_comp,))
+    b0 = np.broadcast_to(_host_array(b0).astype(np.float64).reshape(-1), (k_comp,))
+    if np.min(a0) < 1.0:  # the elementwise Marsaglia-Tsang draw needs a* = a0 + count/2 >= 1
+        return None
+
+    mu_i, lam_i = mcmc.initial_chain_state.get(mu_name), mcmc.initial_chain_state.get(lam_name)
+    if mu_i is None or lam_i is None:
+        return None
+    mu_i = _host_array(mu_i).astype(np.float64)
+    if mu_i.ndim == 2 and mu_i.shape[1] != 1:
+        return None  # RandomWalkLoop must scan exactly one replicate column
+    mu_i = mu_i.reshape(-1)
+    lam_i = _host_array(lam_i).astype(np.float64).reshape(-1)
+    if mu_i.shape[0] != k_comp or lam_i.shape[0] != k_comp:
+        return None
+
+    domain = None
+    if not conjugate and rwl.domain_limits is not None:
+        dl = np.asarray(rwl.domain_limits, np.float64)
+        if dl.shape != (k_comp, 2):
+            return None
+        domain = (dl[:, 0], dl[:, 1])
+        if np.any(mu_i <= domain[0]) or np.any(mu_i >= domain[1]):
+            return None  # the means must start strictly inside the proposal box
+    store_z = z_name in mcmc.store_names
+    if not set(mcmc.store_names) <= {mu_name, lam_name, z_name}:
+        return None
+    if store_z and _jax_z_buffer_bytes(n, k_comp, mcmc.n_chains, mcmc.n_iter) > Z_CAP_BYTES:
+        return None
+    mu0v = np.broadcast_to(_host_array(mu0).astype(np.float64).reshape(-1), (k_comp,))
+    step = 0.2 if conjugate else float(rwl.step_size.reshape(()))
+
+    def run(seed, bit_source=None):
+        nc = mcmc.n_chains
+        out = run_fused_mixture(
+            seed, yv, prior, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=nc, mu0=mu0v, p0=p0, a0=a0, b0=b0,
+            mu_init=mu_i, lam_init=lam_i, step=step, domain=domain, conjugate_means=conjugate, store_z=store_z,
+            n_thin=_kernel_thin(mcmc), device=mcmc.device, bit_source=bit_source,
+        )
+        store = {mu_name: out["means"][..., None], lam_name: out["lams"][..., None]}
+        if store_z:
+            store[z_name] = out["z"][..., None]  # (chains, n_iter, n, 1) int32
+        # conjugate means carry no Metropolis counters, as in the generic driver
+        stats = {z_name: {}, mu_name: {} if conjugate else _counts(mcmc, out, nc), lam_name: {}}
+        return store, out["log_post"], stats
+
+    run.engine_name = "fused_mixture_conjugate" if conjugate else "fused_mixture"
+    run.store_keys = frozenset({mu_name, lam_name} | ({z_name} if store_z else set()))
     return run

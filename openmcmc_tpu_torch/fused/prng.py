@@ -3,11 +3,10 @@
 Port of ``openmcmc_tpu/fused/prng.py``. On the card these functions run inside
 the kernels (``csrc/philox.cuh``, ``csrc/prng.cuh``); here are their plain
 PyTorch versions, which the CPU path and the CPU tests run, and the wrappers of
-the ``prng_draws`` and ``truncnorm_draws`` kernels, which expose the device
-functions over a tensor of counters so that they can be checked on their own.
-``truncnorm_logpdf`` runs inlined in the random-walk kernel (K7);
-``gamma_mt_elem`` is not on a ported path yet (it comes with the mixture and
-reversible-jump kernels).
+the ``prng_draws``, ``truncnorm_draws`` and ``gamma_elem_draws`` kernels, which
+expose the device functions over a tensor of counters so that they can be
+checked on their own. ``truncnorm_logpdf`` runs inlined in the random-walk
+kernel (K7), ``gamma_mt_elem`` in the mixture kernel (K10).
 
 Bits. The TPU kernels draw from the chip's hardware generator, reseeded per grid
 program. The port draws from Philox4x32-10 with a counter layout that does not
@@ -226,6 +225,17 @@ def gamma_mt(a_star: float, rate: torch.Tensor, bit_source):
     return value / rate
 
 
+def gamma_mt_elem(a_star: torch.Tensor, rate: torch.Tensor, bit_source):
+    """Marsaglia-Tsang Gamma(a_star) / rate with an elementwise shape tensor
+    a_star >= 1: GAMMA_ROUNDS fixed rounds, no shape < 1 boost, and the value d
+    when no round accepts. Each round draws the normals, then the uniforms, at
+    the shape of ``rate``. Callers guarantee a_star >= 1 (the mixture matcher
+    through a0 >= 1)."""
+    d = a_star - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    return _mt_squeeze(d, c, d, rate, GAMMA_ROUNDS, bit_source) / rate
+
+
 def gamma_mt2(a1: float, a2: float, rate1: torch.Tensor, rate2: torch.Tensor, bit_source):
     """Two independent Gamma draws sharing each round's draw sites.
 
@@ -400,3 +410,49 @@ def truncnorm_draws(seed: int, ctr: torch.Tensor, x, mu, scale, lo, hi):
 
 
 truncnorm_draws.launches = 0
+
+
+def gamma_elem_sites(seed: int, ctr: torch.Tensor):
+    """The 2 GAMMA_ROUNDS draw sites a :func:`gamma_elem_draws` row reads: round r
+    takes its normals from site ctr[:, 2] + 2r and its uniforms from the next
+    site, each the Philox block (chain, sweep, site, ctr[:, 3]), as (n, 4) words."""
+    c = ctr.to(torch.int64) & _MASK32
+    return [torch.stack(philox4x32(c[:, 0], c[:, 1], c[:, 2] + k, c[:, 3], seed), dim=1)
+            for k in range(2 * GAMMA_ROUNDS)]
+
+
+def gamma_elem_draws_plain(seed: int, ctr: torch.Tensor, a_star: torch.Tensor, rate: torch.Tensor):
+    """Plain version of :func:`gamma_elem_draws`: :func:`gamma_mt_elem` on the 4
+    elements of each counter row, on the row's sites."""
+    return gamma_mt_elem(a_star, rate, SiteStream(gamma_elem_sites(seed, ctr)))
+
+
+def gamma_elem_draws(seed: int, ctr: torch.Tensor, a_star: torch.Tensor, rate: torch.Tensor):
+    """Gamma(a_star) / rate draws (n, 4) for a (n, 4) int32 tensor of counter rows
+    (chain, sweep, site0, group): element j of a row is the ``gamma_mt_elem``
+    device function the mixture kernel inlines, at element 4 group + j of its
+    sites. A CUDA tensor launches ``gamma_elem_draws`` (``csrc/prng_draws.cu``);
+    a CPU tensor takes :func:`gamma_elem_draws_plain`."""
+    if ctr.device.type == "cpu":
+        return gamma_elem_draws_plain(seed, ctr, a_star, rate)
+    if ctr.device.type != "cuda":
+        raise ValueError(f"gamma elem draws: unsupported device {ctr.device}")
+    if ctr.dtype != torch.int32 or ctr.dim() != 2 or ctr.shape[1] != 4 or not ctr.is_contiguous():
+        raise ValueError("gamma elem draws: counters must be a contiguous (n, 4) int32 tensor")
+    for t in (a_star, rate):
+        if t.shape != ctr.shape or t.dtype != torch.float32 or t.device != ctr.device or not t.is_contiguous():
+            raise ValueError("gamma elem draws: a_star and rate must be contiguous (n, 4) float32 on ctr's device")
+    from openmcmc_tpu_torch import _build
+
+    out = torch.empty_like(rate)
+    lib = _build.library()
+    with torch.cuda.device(ctr.device):
+        stream = torch.cuda.current_stream(ctr.device).cuda_stream
+        err = lib.gamma_elem_draws_launch(int(seed) & _MASK32, ctr.data_ptr(), a_star.data_ptr(), rate.data_ptr(),
+                                          out.data_ptr(), ctr.shape[0], stream)
+    gamma_elem_draws.launches += 1
+    _build.check(err, "gamma_elem_draws")
+    return out
+
+
+gamma_elem_draws.launches = 0

@@ -17,12 +17,15 @@ match. The fused engines so far: ``fused_smoother_spectral`` (kernel K1),
 for linear regression ``fused_linreg`` (p <= 16, kernel K6) and
 ``fused_linreg_spectral`` (p <= 256, kernel K5), and for the Metropolis family
 ``fused_random_walk`` (kernel K7), ``fused_mmala`` (p <= 16, kernel K8) and
-``fused_mmala_spectral`` (p <= 256, kernel K9).
+``fused_mmala_spectral`` (p <= 256, kernel K9), and for the Gaussian mixture
+``fused_mixture`` and ``fused_mixture_conjugate`` (kernel K10), which store the
+allocation Z as int32 (chains, n_iter, n, 1) like the generic driver.
 
 Randomness: the generic driver draws from one ``torch.Generator`` on the device,
 seeded from ``seed`` (torch draws: Gamma variates, prior init, non-tridiagonal
 Normal noise, truncated-normal uniforms, Metropolis proposals and accept
-uniforms), and K3 from Philox keyed by ``seed & 0x7FFFFFFF`` with a call
+uniforms, mixture allocations), and K3 from Philox keyed by
+``seed & 0x7FFFFFFF`` with a call
 counter per (sweep, sampler). The streams differ from the JAX package's
 threefry ones; its draws agree in distribution.
 
@@ -168,10 +171,12 @@ class MCMC:
         self.device = torch.device(device)
 
         coerced = _coerce_state(state, self.device)
+        # per-chain entries: everything a sampler can modify, then the extras
         chain_names = []
         for sampler in self.samplers:
-            if sampler.param not in chain_names:
-                chain_names.append(sampler.param)
+            for name in getattr(sampler, "updated_names", [sampler.param]):
+                if name not in chain_names:
+                    chain_names.append(name)
         for name in chain_state_names:
             if name not in chain_names:
                 chain_names.append(name)

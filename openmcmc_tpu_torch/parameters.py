@@ -2,11 +2,11 @@
 (port of ``openmcmc_tpu/parameters.py``).
 
 Ported so far: :class:`Identity` and :class:`ScaledMatrix` (the smoother's
-forms) and :class:`LinearCombination` (linear regression), with the gradient
-lists the conjugate samplers read and ``LinearCombination.grad``.
-``LinearCombinationWithTransform`` comes with reversible jump and the mixture
-forms with the mixture slice (ROADMAP.md queue 1: reversible jump; mixture); the
-other gradients come with the Metropolis family.
+forms), :class:`LinearCombination` (linear regression), with the gradient lists
+the conjugate samplers read and ``LinearCombination.grad``, and the mixture forms
+:class:`MixtureParameterVector` and :class:`MixtureParameterMatrix`.
+``LinearCombinationWithTransform`` comes with reversible jump (ROADMAP.md queue
+1: reversible jump).
 
 State convention as in the JAX package: state[name] has shape (p, n), p the
 dimension and n the replicates; per-chain entries carry leading chain axes,
@@ -120,3 +120,78 @@ class ScaledMatrix(Parameter):
 
     def get_grad_param_list(self):
         return [self.scalar]
+
+
+@dataclass(frozen=True)
+class MixtureParameter(Parameter, ABC):
+    """Allocation-indexed forms: ``state[allocation]`` holds one component index
+    per point, (..., n, 1) with chain axes where it is sampled."""
+
+    param: str
+    allocation: str
+
+    def indices(self, state: dict) -> torch.Tensor:
+        """The component index of every point, (..., n)."""
+        alloc = state[self.allocation]
+        return alloc.reshape(alloc.shape[:-2] + (-1,))
+
+    def get_element_match(self, state: dict, element_index) -> torch.Tensor:
+        """int32 indicator of allocation == element_index: (..., 1, n) for a
+        scalar index, (..., m, n) for an index vector of length m."""
+        alloc = self.indices(state)
+        index = torch.as_tensor(element_index, device=alloc.device)
+        return (alloc[..., None, :] == index.reshape(-1, 1)).to(torch.int32)
+
+    def get_param_list(self):
+        return [self.param, self.allocation]
+
+
+def _gather_components(vals: torch.Tensor, alloc: torch.Tensor) -> torch.Tensor:
+    """Rows ``alloc`` of the component table ``vals`` (..., m, r) for the
+    indices ``alloc`` (..., n): (..., n, r), batch axes broadcast. A gather
+    stands where the JAX package contracts with a one-hot matrix (a TPU
+    workaround for per-chain gathers)."""
+    batch = torch.broadcast_shapes(vals.shape[:-2], alloc.shape[:-1])
+    n, r = alloc.shape[-1], vals.shape[-1]
+    index = alloc.to(torch.int64).expand(batch + (n,))[..., None].expand(batch + (n, r))
+    return torch.gather(vals.expand(batch + tuple(vals.shape[-2:])), -2, index)
+
+
+@dataclass(frozen=True)
+class MixtureParameterVector(MixtureParameter):
+    """f = state[param][state[allocation]]: each point's component value,
+    (..., n, r) for a (..., m, r) component table."""
+
+    def predictor(self, state: dict) -> torch.Tensor:
+        return _gather_components(state[self.param], self.indices(state))
+
+    def grad(self, state: dict, param: str) -> torch.Tensor:
+        """d predictor / d param: the (..., m, n) allocation indicator."""
+        n_components = state[param].shape[-2]
+        index = torch.arange(n_components, device=state[param].device)
+        return self.get_element_match(state, index).to(state[param].dtype)
+
+    def get_grad_param_list(self):
+        return [self.param]
+
+
+@dataclass(frozen=True)
+class MixtureParameterMatrix(MixtureParameter):
+    """f = diag(state[param][state[allocation]]) as a structured Diagonal, one
+    per chain: the (..., n) diagonal of each point's component value."""
+
+    def predictor(self, state: dict) -> st.Diagonal:
+        vals = state[self.param]
+        vals = vals.reshape(vals.shape[:-2] + (-1, 1))
+        return st.Diagonal(_gather_components(vals, self.indices(state))[..., 0])
+
+    def grad(self, state: dict, param: str):
+        raise TypeError("Not defined in this case")
+
+    def get_grad_param_list(self):
+        return []
+
+    def precision_unscaled(self, state: dict, element_index) -> st.Diagonal:
+        """Diagonal 0/1 mask of allocation == element_index (the conjugate
+        NormalGamma hook)."""
+        return st.Diagonal((self.indices(state) == element_index).to(torch.float32))

@@ -1,8 +1,9 @@
-"""Samplers. Ported so far: the conjugate NormalNormal and NormalGamma, and the
-Metropolis family (RandomWalk, RandomWalkLoop, ManifoldMALA)."""
+"""Samplers. Ported so far: the conjugate NormalNormal, NormalGamma and
+MixtureAllocation, and the Metropolis family (RandomWalk, RandomWalkLoop,
+ManifoldMALA)."""
 
 from openmcmc_tpu_torch.samplers.base import Sampler
-from openmcmc_tpu_torch.samplers.conjugate import NormalGamma, NormalNormal
+from openmcmc_tpu_torch.samplers.conjugate import MixtureAllocation, NormalGamma, NormalNormal
 from openmcmc_tpu_torch.samplers.metropolis import (
     ManifoldMALA,
     MetropolisHastings,
@@ -11,5 +12,5 @@ from openmcmc_tpu_torch.samplers.metropolis import (
     acceptance_rate,
 )
 
-__all__ = ["Sampler", "NormalNormal", "NormalGamma", "MetropolisHastings", "RandomWalk", "RandomWalkLoop",
+__all__ = ["Sampler", "NormalNormal", "NormalGamma", "MixtureAllocation", "MetropolisHastings", "RandomWalk", "RandomWalkLoop",
            "ManifoldMALA", "acceptance_rate"]

@@ -1,32 +1,50 @@
 """Conjugate Gibbs samplers (port of ``openmcmc_tpu/samplers/conjugate.py``).
 
-Ported so far: :class:`NormalNormal` and :class:`NormalGamma` with their JAX
-structural checks and their ``step`` on chain-batched state (per-chain entries
-(chains, p, n), data (p, n), broadcast). NormalNormal keeps the conditional
-precision structured, so a banded GMRF prior plus a diagonal likelihood stays
-tridiagonal and its draw is one launch of kernel K3; a box-truncated prior takes
-one red-black truncated Gibbs sweep over the current value instead. A
-LinearCombination likelihood mean adds the dense Hessian n (X'W) X per chain,
-and the draw factors the (chains, p, p) Dense precision with batched
-``torch.linalg.cholesky_ex`` (no kernel: the JAX package leaves it to XLA). Not
-ported yet, and raising with their ROADMAP.md item: the mixture likelihood
-means (queue 1: mixture), the lexicographic truncated sweep a non-banded
-precision needs (queue 1: sparse and permuted priors) and ``MixtureAllocation``
-(queue 1: mixture).
+:class:`NormalNormal`, :class:`NormalGamma` and :class:`MixtureAllocation`
+with their JAX structural checks and their ``step`` on chain-batched state
+(per-chain entries (chains, p, n), data (p, n), broadcast). NormalNormal keeps
+the conditional precision structured, so a banded GMRF prior plus a diagonal
+likelihood stays tridiagonal and its draw is one launch of kernel K3; a
+box-truncated prior takes one red-black truncated Gibbs sweep over the current
+value instead. A LinearCombination likelihood mean adds the dense Hessian
+n (X'W) X per chain, and the draw factors the (chains, p, p) Dense precision with
+batched ``torch.linalg.cholesky_ex`` (no kernel: the JAX package leaves it to
+XLA). A mixture likelihood mean (the component means) adds diag(n_k lam_k), so
+the conditional stays Diagonal. Per-component sums over the allocation are
+scatter-adds (the JAX package contracts with one-hot matrices, a TPU
+workaround). The lexicographic truncated sweep a non-banded precision needs
+raises with its ROADMAP.md item (queue 1: sparse and permuted priors).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
 from openmcmc_tpu_torch.distributions.location_scale import Normal
+from openmcmc_tpu_torch.distributions.univariate import categorical_icdf
 from openmcmc_tpu_torch.linalg import gmrf
 from openmcmc_tpu_torch.linalg import structured as st
 from openmcmc_tpu_torch.model import Model
-from openmcmc_tpu_torch.parameters import Identity, LinearCombination, ScaledMatrix
+from openmcmc_tpu_torch.parameters import (
+    Identity,
+    LinearCombination,
+    MixtureParameterMatrix,
+    MixtureParameterVector,
+    ScaledMatrix,
+)
 from openmcmc_tpu_torch.samplers.base import Sampler
+
+
+def _component_sums(alloc: torch.Tensor, values: torch.Tensor, m: int) -> torch.Tensor:
+    """Per-component sums of ``values`` (..., n) over the points allocated to
+    each of the m components, for an allocation (..., n): (..., m)."""
+    batch = torch.broadcast_shapes(alloc.shape[:-1], values.shape[:-1])
+    n = alloc.shape[-1]
+    out = torch.zeros(batch + (m,), dtype=values.dtype, device=values.device)
+    return out.scatter_add_(-1, alloc.to(torch.int64).expand(batch + (n,)), values.expand(batch + (n,)))
 
 
 class NormalNormal(Sampler):
@@ -65,11 +83,24 @@ class NormalNormal(Sampler):
                 rest = dist.mean.predictor_conditional(state, term_to_exclude=param)
                 A = state[dist.mean.form_dict[param]]
                 b = b + torch.matmul(A.mT, st.matvec(Q_rsp, state[key_r] - rest))
+            elif isinstance(dist.mean, MixtureParameterVector) and dist.mean.param == param:
+                # component means: the design is the one-hot allocation A (n, m),
+                # so Q += n_obs A'WA and b += A'W sum_cols(y); A'WA is Diagonal
+                # when W is
+                alloc = dist.mean.indices(state)
+                m = x.shape[-2]
+                n_obs = state[key_r].shape[-1]
+                y_sum = torch.sum(state[key_r], dim=-1)
+                if isinstance(Q_rsp, st.Diagonal):
+                    Q_dist = st.Diagonal(_component_sums(alloc, Q_rsp.diag_, m) * float(n_obs))
+                    b = b + _component_sums(alloc, Q_rsp.diag_ * y_sum, m)[..., None]
+                else:
+                    onehot = (alloc[..., None] == torch.arange(m, device=alloc.device)).to(b.dtype)
+                    WA = st.matvec(Q_rsp, onehot)
+                    Q_dist = st.Dense(torch.matmul(onehot.mT, WA) * float(n_obs))
+                    b = b + torch.matmul(WA.mT, y_sum[..., None])
             else:
-                raise NotImplementedError(
-                    f"NormalNormal with a {type(dist.mean).__name__} likelihood mean is not ported yet "
-                    "(ROADMAP.md queue 1: mixture)"
-                )
+                raise TypeError(f"NormalNormal cannot take a {type(dist.mean).__name__} likelihood mean of {param}")
             Q = Q_dist if Q is None else st.add(Q, Q_dist)
         prior = self.model[param]
         if not prior.truncated:
@@ -85,11 +116,14 @@ class NormalNormal(Sampler):
 
 
 class NormalGamma(Sampler):
-    """Gamma prior on the precision scalar of a Gaussian.
+    """Gamma prior on the precision scalar(s) of a Gaussian.
 
     Posterior: a* = a0 + n_eff / 2, b* = b0 + r' P r / 2, with P the unscaled
     precision (the identity for an Identity precision) and n_eff the count of
-    its positive diagonal entries times the replicate columns."""
+    its positive diagonal entries times the replicate columns. A
+    MixtureParameterMatrix precision has one precision per component k:
+    a*_k = a0_k + count_k / 2 and b*_k = b0_k + quad_k / 2 over the points (and
+    replicate columns) allocated to k."""
 
     def __init__(self, param: str, model: Model):
         super().__init__(param, model)
@@ -97,8 +131,8 @@ class NormalGamma(Sampler):
         if len(normal_params) != 1:
             raise TypeError("NormalGamma expects exactly one paired Normal distribution")
         self.normal_param = normal_params[0]
-        if not isinstance(self.model[self.normal_param].precision, (Identity, ScaledMatrix)):
-            raise TypeError("precision must be either Identity or ScaledMatrix in the port so far")
+        if not isinstance(self.model[self.normal_param].precision, (Identity, ScaledMatrix, MixtureParameterMatrix)):
+            raise TypeError("precision must be either Identity, ScaledMatrix or MixtureParameterMatrix")
 
     def step(self, key, state: dict, stats: dict, adapt: bool = False) -> Tuple[dict, dict]:
         param = self.param
@@ -115,19 +149,71 @@ class NormalGamma(Sampler):
         a = shape_in.reshape(shape_in.shape[:-2] + (-1,)).expand(batch + (m,))
         b = rate_in.reshape(rate_in.shape[:-2] + (-1,)).expand(batch + (m,))
 
-        if isinstance(precision, Identity):
+        if isinstance(precision, MixtureParameterMatrix):
+            alloc = precision.indices(state)
+            quad = _component_sums(alloc, torch.sum(residual * residual, dim=-1), m)
+            ones = torch.ones(alloc.shape, dtype=residual.dtype, device=residual.device)
+            a = a + n_obs * _component_sums(alloc, ones, m) / 2.0
+        elif isinstance(precision, Identity):
             # precision == the sampled scalar itself: the unscaled penalty is the identity
-            quad = torch.sum(residual * residual, dim=(-2, -1))
+            quad = torch.sum(residual * residual, dim=(-2, -1))[..., None]
             a = a + residual.shape[-2] * n_obs / 2.0
         else:
             P = st.as_structured(state[precision.matrix])
-            quad = torch.sum(residual * st.matvec(P, residual), dim=(-2, -1))
+            quad = torch.sum(residual * st.matvec(P, residual), dim=(-2, -1))[..., None]
             n_eff = torch.sum(st.diag(P) > 0, dim=-1) * n_obs
             a = a + n_eff[..., None] / 2.0
-        b = b + quad[..., None] / 2.0
+        b = b + quad / 2.0
 
         draw = torch._standard_gamma(a.contiguous(), generator=key.generator) / torch.where(b == 0, torch.inf, b)
         draw = torch.where(b == 0, torch.inf, draw)
         new_state = dict(state)
         new_state[param] = draw.reshape(x.shape)
+        return new_state, stats
+
+
+class MixtureAllocation(Sampler):
+    """Conjugate allocation of each point of a Normal mixture to a component.
+
+    Conditional probabilities gam_ik proportional to prior_ik N(y_i; mu_k,
+    1/lam_k), one categorical draw per point and chain, by inverse CDF from one
+    uniform of the run's generator (the JAX package draws
+    ``jax.random.categorical``; the two agree in distribution)."""
+
+    def __init__(self, param: str, model: Model, response_param: str):
+        # only the allocation prior and the mixture response distribution
+        self.param = param
+        self.response_param = response_param
+        self.max_variable_size = None
+        self.model = Model([model[param], model[response_param]])
+        response = self.model[response_param]
+        if not isinstance(response, Normal):
+            raise TypeError("Mixture model currently only implemented for Normal case")
+        if not isinstance(response.mean, MixtureParameterVector):
+            raise TypeError("Mean must be of type MixtureParameterVector")
+        if not isinstance(response.precision, MixtureParameterMatrix):
+            raise TypeError("Precision must be of type MixtureParameterMatrix")
+
+    def logits(self, state: dict) -> torch.Tensor:
+        """log prior_ik + log N(y_i; mu_k, 1/lam_k), (..., n, m), in the JAX
+        package's operation order."""
+        response = self.model[self.response_param]
+        prior = self.model[self.param].prob.predictor(state)  # (n, m)
+        y = state[self.response_param]  # (n, 1)
+        mu = state[response.mean.param]
+        lam = state[response.precision.param]
+        mu = mu.reshape(mu.shape[:-2] + (1, -1))
+        lam = lam.reshape(lam.shape[:-2] + (1, -1))
+        z2 = (y - mu) ** 2 * lam
+        log_like = 0.5 * (torch.log(lam) - math.log(2.0 * math.pi) - z2)
+        return torch.log(prior) + log_like
+
+    def step(self, key, state: dict, stats: dict, adapt: bool = False) -> Tuple[dict, dict]:
+        logits = self.logits(state)
+        weights = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+        u = torch.rand(weights.shape[:-1], generator=key.generator, dtype=weights.dtype, device=weights.device)
+        draw = categorical_icdf(weights, u)
+        x = state[self.param]
+        new_state = dict(state)
+        new_state[self.param] = draw.reshape(draw.shape[:-1] + tuple(x.shape[-2:])).to(x.dtype)
         return new_state, stats

@@ -369,3 +369,55 @@ def test_spectral_mmala_kernel_matches_plain(dev, N, p, adapt):
     assert spectral.spectral_mmala_sweeps_kernel.launches == before + 1
     assert tuple(got["beta"].shape) == (100, 5, p)
     _assert_mh_matches_plain(got, want, "beta")
+
+
+def test_gamma_elem_kernel_matches_plain(dev):
+    """K2's gamma_mt_elem, launched alone over 4096 counter rows, against its
+    plain version on the same Philox sites: elementwise shapes in [1, 200),
+    every value within 1e-6 relative."""
+    from openmcmc_tpu_torch.fused import prng
+
+    gen = torch.Generator().manual_seed(1)
+    ctr = torch.randint(0, 2**20, (4096, 4), dtype=torch.int32, generator=gen).to(dev)
+    a = (1.0 + 199.0 * torch.rand((4096, 4), generator=gen)).to(dev)
+    rate = (0.1 + 3.0 * torch.rand((4096, 4), generator=gen)).to(dev)
+    before = prng.gamma_elem_draws.launches
+    got = prng.gamma_elem_draws(11, ctr, a, rate)
+    want = prng.gamma_elem_draws_plain(11, ctr, a, rate)
+    torch.cuda.synchronize()
+    assert prng.gamma_elem_draws.launches == before + 1
+    assert bool(torch.all(torch.isfinite(got))) and bool(torch.all(got > 0))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("k,n,conjugate,box", [(2, 200, False, True), (2, 2100, True, False), (16, 3000, True, False),
+                                               (16, 2500, False, True), (5, 37, False, False)],
+                         ids=["k2_n200_rw_box", "k2_n2100_conjugate", "k16_n3000_conjugate", "k16_n2500_rw_box",
+                              "k5_n37_rw"])
+def test_mixture_kernel_matches_plain(dev, k, n, conjugate, box):
+    """K10 against its plain version on the same Philox bits: 64 chains, n_burn
+    3, n_keep 4, n_thin 2, Z stored; both variants, K = 2, 5 and 16, n from 37
+    (a ragged group of four) past 2048. Every allocation equal; means, lams
+    rtol 1e-4, atol 1e-5; log_post 1e-4 relative; the accept counts equal."""
+    from openmcmc_tpu_torch.fused import mixture
+
+    rng = np.random.default_rng(k + n)
+    alloc = rng.integers(0, k, n)
+    y = np.linspace(-3.0, 3.0, k)[alloc] + rng.normal(0.0, 0.5, n)
+    prior = rng.uniform(0.2, 1.0, (n, k))
+    domain = (np.full(k, -4.0), np.full(k, 4.0)) if box else None
+    scal, data, kw = mixture.prepare(y, prior, 0.0, 0.01, 2.0, 1.0, np.linspace(-1.0, 1.0, k), np.ones(k),
+                                     domain=domain, device=dev)
+    kw.update(conjugate=conjugate, step=0.3, n_burn=3, n_keep=4, n_thin=2, store_z=True)
+    before = mixture.mixture_sweeps_kernel.launches
+    got = mixture.mixture_sweeps(5, scal, data, 64, **kw)
+    want = mixture.mixture_sweeps_plain(5, scal, data, 64, **kw)
+    torch.cuda.synchronize()
+    assert mixture.mixture_sweeps_kernel.launches == before + 1
+    assert tuple(got["z"].shape) == (64, 4, n) and got["z"].dtype == torch.int32
+    assert torch.equal(got["z"], want["z"])
+    for name in ("means", "lams"):
+        torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
+    assert torch.all(torch.abs(got["log_post"] - want["log_post"])
+                     <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
+    assert torch.equal(got["accept_total"], want["accept_total"])

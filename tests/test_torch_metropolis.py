@@ -123,8 +123,13 @@ def test_gradients_match_jax(grad_problem, case):
     assert grad.shape == state[param].shape and hess.shape[-2:] == (d, d)
     with jax.enable_x64(True):
         ref = jmodel if dist_name is None else jmodel[dist_name]
+        # every chain's JAX state at once: the per-chain entries vmapped, one compiled trace
+        per_chain = {k for k, v in state.items() if torch.is_tensor(v) and v.dim() == 3}
+        data = _jax_state({k: v for k, v in state.items() if k not in per_chain}, 0)
+        stacked = {k: jnp.asarray(state[k].numpy()) for k in per_chain}
+        g_all, h_all = jax.jit(jax.vmap(lambda chain: ref.grad_log_p({**data, **chain}, param)))(stacked)
         for c in range(C):
-            g_j, h_j = ref.grad_log_p(_jax_state(state, c), param)
+            g_j, h_j = g_all[c], h_all[c]
             np.testing.assert_allclose(grad[c].numpy(), np.asarray(g_j), rtol=1e-6, atol=1e-9, err_msg=case)
             h_c = hess[c] if hess.dim() == 3 else hess
             np.testing.assert_allclose(h_c.numpy(), np.asarray(h_j).reshape(d, d), rtol=1e-6, atol=1e-9, err_msg=case)
@@ -297,3 +302,36 @@ def test_carried_logp_decisions_match_jax():
     for kind, want in (("single", {"h"}), ("shared", set()), ("loop", set()), ("mmala", {"h"}),
                        ("independent", {"h", "g"})):
         assert sweep("openmcmc_tpu", kind) == sweep("openmcmc_tpu_torch", kind) == frozenset(want), kind
+
+
+def test_updated_names_reach_the_chain_state():
+    """(g) A sampler's extra ``updated_names`` are per-chain entries in both
+    packages: example 2 with a RandomWalk whose state_update_function sets
+    g = 2 h (4 chains, 5 + 5 sweeps) carries and stores g beside h, and the
+    stored g equals 2 h, as in the JAX package."""
+    def run(pkg):
+        dist = importlib.import_module(f"{pkg}.distributions")
+        smp = importlib.import_module(f"{pkg}.samplers")
+        Model = importlib.import_module(f"{pkg}.model").Model
+        MCMC = importlib.import_module(f"{pkg}.mcmc").MCMC
+        mdl = Model([dist.Normal("y", mean="h", precision="tau"), dist.Normal("h", mean="mu", precision="lambda")])
+
+        def hook(key, updates, state, param_index):
+            updates = dict(updates)
+            updates["g"] = 2.0 * updates["h"]
+            return updates, 0.0, 0.0
+
+        sampler = smp.RandomWalk("h", mdl, step=8.0, state_update_function=hook, updated_names=["h", "g"])
+        state = {"y": np.array([[150.0, 155.0, 190.0, 160.0, 173.0]]), "h": 175.0, "g": 350.0,
+                 "tau": np.eye(1) / 200.0, "mu": 160.0, "lambda": np.eye(1) / 100.0}
+        kw = {"device": "cpu"} if pkg == "openmcmc_tpu_torch" else {}
+        mcmc = MCMC(state, [sampler], mdl, n_burn=5, n_iter=5, n_chains=4, seed=2, store_names=["h", "g"], **kw)
+        return mcmc.chain_state_names, mcmc.run()
+
+    for pkg in ("openmcmc_tpu", "openmcmc_tpu_torch"):
+        names, res = run(pkg)
+        assert list(names) == ["h", "g"], pkg
+        h, g = np.asarray(res.store["h"]), np.asarray(res.store["g"])
+        assert h.shape == g.shape == (4, 5, 1, 1), pkg
+        np.testing.assert_allclose(g, 2.0 * h, rtol=1e-6, err_msg=pkg)
+        assert not np.all(h == h[:, :1]), pkg  # the walk moved

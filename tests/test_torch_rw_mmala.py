@@ -13,7 +13,9 @@ multiply-adds into FMAs, which the plain versions, like the kernels, do not.
 """
 
 import importlib
+import unittest.mock as mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -285,18 +287,33 @@ def test_dispatch_matches_jax():
                             bit_source=lambda *a: None)
 
 
+def _shapes_only(fn):
+    """``fn`` with its result computed by abstract evaluation: zeros of the
+    shapes and dtypes the JAX kernel would return, nothing compiled or run."""
+    def run(*args, **kwargs):
+        out = jax.eval_shape(lambda: fn(*args, **kwargs))
+        return jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype), out)
+
+    return run
+
+
 @pytest.mark.parametrize("case", [0, 15, 8, 9], ids=["rw_p1", "rw_p4_box_adapt", "mmala_p5", "mmala_p24_adapt"])
-def test_fused_stats_match_jax_shapes(host_stats, case):  # noqa: F811
+def test_fused_stats_match_jax_shapes(case):
     """(g) The matched runners' statistics have the JAX runners' keys, shapes and
     dtypes: accept and proposal (chains,) int32 with the proposal count
     n_burn + n_iter over burn-in and sampling, and the adapted log_step in the
-    step's at-least-2-D shape per chain; the store as the generic driver's."""
+    step's at-least-2-D shape per chain; the store as the generic driver's. The
+    JAX runner runs whole, its kernel call by abstract evaluation (the kernels'
+    values are held against the port's in the tests above)."""
     from openmcmc_tpu.fused.dispatch import match_fused_engine as jmatch
     from openmcmc_tpu_torch.convert import state_from_reference
     from openmcmc_tpu_torch.fused.dispatch import match_fused_engine as tmatch
 
     kind, state, skw, mkw, _ = DISPATCH_CASES[case]
-    jstore, jlp, jstats = jmatch(build("openmcmc_tpu", kind, state, skw, **mkw))(3)
+    with mock.patch.object(jrw, "run_fused_rw", _shapes_only(jrw.run_fused_rw)), \
+            mock.patch.object(jmmala, "run_fused_mmala", _shapes_only(jmmala.run_fused_mmala)), \
+            mock.patch.object(jspectral, "run_spectral_mmala", _shapes_only(jspectral.run_spectral_mmala)):
+        jstore, jlp, jstats = jmatch(build("openmcmc_tpu", kind, state, skw, **mkw))(3)
     mcmc = build("openmcmc_tpu_torch", kind, state_from_reference(state, device="cpu"), skw, device="cpu", **mkw)
     res = mcmc.run(engine="auto")
     assert res.engine == tmatch(mcmc).engine_name
