@@ -74,6 +74,24 @@ version on every value and every stored allocation, on both variants, K = 2 and
   K = 16, conjugate means, 256 chains, 50 burn-in and 150 stored sweeps),
   engine ``fused_mixture_conjugate``.
 
+Then reversible jump, each cell through ``MCMC.run(engine="auto")`` with one
+launch of the reversible-jump kernel (K11), that kernel held against its plain
+version on every chain of a 5-sweep run at full width with the parameters
+streamed, and a generic twin (the port's ManifoldMALA, RandomWalkLoop,
+ReversibleJump and NormalGamma, no kernel); before them ``rj_small`` holds K11
+against its plain version on both variants at n_max 2 to 32, n_data 7 to 200:
+
+- ``rj``: bench_all.py's reversible_jump (the prior-recovery configuration:
+  Null likelihood, n_max 20, 50 points, rho 8, 2048 chains, 5000 stored
+  sweeps), engine ``fused_rj``; its count marginal, thinned by 10, against the
+  [1, 20]-truncated Poisson(8) (mean within 0.25, sd within 0.35), and the
+  generic twin's against the same target within 5 Monte Carlo sd;
+- ``rj_regression``: bench_all.py's reversible_jump_regression (y ~ N(B beta,
+  (tau_y I)^-1) with a conjugate tau_y, 2048 chains, 5000 stored sweeps),
+  engine ``fused_rj``; a streamed run whose log_post equals ``Model.log_p`` at
+  the stored draws, and the posterior means of the count and tau_y after the
+  first 1000 draws against the generic twin's within 5 Monte Carlo sd.
+
 Each path runs with every launch count set to 0 just before it and read just
 after. The kernels are timed against their plain versions with CUDA events,
 beside the least time the card could take for the same work (``bound_ms``).
@@ -112,6 +130,7 @@ REPLACES = {
     "spectral_mmala": "openmcmc_tpu/fused/spectral.py:655",
     "mixture": "openmcmc_tpu/fused/mixture.py:107",
     "gamma_elem_draws": "openmcmc_tpu/fused/prng.py:218",
+    "rj": "openmcmc_tpu/fused/rj.py:_make_kernel",
 }
 # the K4 cells: bench_all.py's truncated_smoother (bench_all.py:468, :762) and the
 # flagship model past the spectral engine's tridiagonal limit (p > 1024)
@@ -140,9 +159,17 @@ MW_N, MW_P, MW_CHAINS, MW_BURN, MW_ITER, MW_SEED = 2048, 256, 4096, 200, 500, 7
 MW_GEN_CHAINS, MW_GEN_BURN, MW_GEN_ITER = 256, 50, 150
 # the mixture cells: bench_all.py's mixture (:284-323) and mixture_conjugate
 # (:327-367) at their fused rows' width (:616-649), and mixture_large (:407-461);
-# their generic twins run fewer chains at the cell's depth
+# their generic twins run fewer chains and fewer sweeps (the generic sweep is
+# launch-bound, so its time follows the sweeps)
 X_N, X_K, X_CHAINS, X_BURN, X_ITER, X_GEN_CHAINS = 200, 2, 4096, 500, 1000, 1024
 XL_N, XL_K, XL_CHAINS, XL_BURN, XL_ITER, XL_GEN_CHAINS = 100_000, 16, 256, 50, 150, 64
+X_GEN_BURN, X_GEN_ITER, XL_GEN_BURN, XL_GEN_ITER = 200, 400, 50, 75
+# the reversible-jump cells: bench_all.py's reversible_jump (:180-224, fused row
+# :604-613) and reversible_jump_regression (:226-282, fused row :709-716), at
+# their published width; their generic twins run 256 chains and fewer sweeps
+J_MAX, J_N, J_CHAINS, J_ITER, J_GEN_CHAINS = 20, 50, 2048, 5000, 256
+J_GEN_BURN, J_GEN_ITER = 100, 400  # rj's twin
+JR_GEN_BURN, JR_GEN_ITER, JR_SKIP = 200, 300, 1000  # rj_regression's twin; the fused draws it skips
 # H100 SXM data sheet: HBM bandwidth and the float32 rate outside the tensor cores
 # (TF32 is excluded: the port keeps full float32, ROADMAP.md's invariant)
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
@@ -192,6 +219,66 @@ def k8_flop_per_sweep(p):
     proposal (8p), the target (3p^2 + 2p + 4), the two proposal densities
     (3p(p + 1) + 4p + 8) and the accept."""
     return 30 * p + p * p + 8 * p + 3 * p * p + 2 * p + 4 + 3 * p * (p + 1) + 4 * p + 8 + K8_FLOP_PER_SWEEP
+
+
+def chol_flop(m):
+    """Float32 operations of a Cholesky of an m x m matrix, lower triangle only:
+    column j's m - j entries take j multiply-adds each and its m - j - 1
+    subdiagonal entries one division; a pivot takes max, sqrt, log and the
+    log-determinant's multiply-add (5)."""
+    return (m ** 3 - m) / 3 + m * (m - 1) / 2 + 5 * m
+
+
+def rj_flop_per_sweep(k, n_max, n_data, lik):
+    """K11's float32 operations for one chain's sweep that starts with k active
+    columns (k may be an array), counting what the sweep needs rather than what
+    the kernel's lanes do: every vector, basis column, Gram, factorization and
+    solve at the active size (k, or k + 1 for the birth's matrices), lower-triangle
+    Choleskys (chol_flop), forward plus back substitution 2 m^2, and the one move
+    the sweep makes at its probability (birth certain at k <= 1, impossible at
+    n_max, else one half); transcendentals one each, Philox's integer rounds not
+    counted. Both variants: the basis (8 k n), the Gram (k (k + 1) n), two model
+    densities (30 k) and the accept (11); the birth: the new knot and its
+    column (70 + 8 n), its dots (2 k n + 2 n), S and C (2 k + 1), two
+    factorizations of k + 1, B beta and its dots (4 k n + 2 n), the solve, the
+    matched draw and its density (129) and the proposal terms (23); the death:
+    the index and log density (12), S and C (3 k), S beta (2 k^2), two
+    factorizations of k, the solve, the reverse draw's density (51) and the
+    proposal terms (6). Null variant: the mMALA step (51 k + 3) and the two
+    vectorised walks (400 k). Likelihood variant: the residual (2 k n + n), the
+    metric's Gram (k (k + 1) n), the gradient (2 k n + 4 k), the metric and its
+    factorization (k (k + 1) / 2 + k + chol_flop(k)), its solve and back
+    substitution (3 k^2), the proposal and its terms (43 k + 3), H d_r (2 k^2),
+    dB and its two dots (2 k n + 4 n), the prior difference (10 k + 7), the 2 k
+    column walks (383 k + 28 k n in all), the current quadratic (2 n), the
+    move's proposed quadratic (birth 2 k n + 6 n, death 2 (k - 1) n + 3 n),
+    the two log likelihoods (10) and tau's Gamma round with the log posterior
+    (80). An accepted move that updates the residual adds n: counted by
+    rj_flop from the run's accept counts."""
+    k = np.asarray(k, dtype=np.float64)
+    n = float(n_data)
+    p_birth = np.where(k <= 1, 1.0, np.where(k >= n_max, 0.0, 0.5))
+    birth = (70 + 8 * n + 2 * k * n + 2 * n + 2 * k + 1 + 2 * chol_flop(k + 1) + 4 * k * n + 2 * n
+             + 2 * (k + 1) ** 2 + 129 + 23)
+    death = 12 + 3 * k + 2 * k * k + 2 * chol_flop(k) + 2 * k * k + 51 + 6
+    flop = 8 * k * n + k * (k + 1) * n + 30 * k + 11 + p_birth * birth + (1 - p_birth) * death
+    if lik:
+        flop = flop + (2 * k * n + n + k * (k + 1) * n + 2 * k * n + 4 * k + k * (k + 1) / 2 + k + chol_flop(k)
+                       + 3 * k * k + 43 * k + 3 + 2 * k * k + 2 * k * n + 4 * n + 10 * k + 7 + 383 * k + 28 * k * n
+                       + 2 * n + p_birth * (2 * k * n + 6 * n) + (1 - p_birth) * (2 * (k - 1) * n + 3 * n) + 10 + 80)
+    else:
+        flop = flop + 51 * k + 3 + 400 * k
+    return flop
+
+
+def rj_flop(k_start, n_max, n_data, lik, accepts=0):
+    """K11's float32 operations over a run: rj_flop_per_sweep summed over every
+    chain's sweeps, ``k_start`` the active count at the start of each (an integer
+    array of chains x sweeps), plus n per accepted residual update (``accepts``:
+    the run's accepted mMALA steps and column walks, likelihood variant)."""
+    per_k = rj_flop_per_sweep(np.arange(n_max + 1), n_max, n_data, lik)
+    counts = np.bincount(np.asarray(k_start, dtype=np.int64).reshape(-1), minlength=n_max + 1)
+    return float(counts @ per_k) + (float(n_data) * float(accepts) if lik else 0.0)
 
 
 def bound(n_bytes, n_flop):
@@ -388,7 +475,7 @@ def _wrappers():
     from openmcmc_tpu_torch.fused import gmrf_smoother, linreg, mmala, prng, random_walk, spectral
     from openmcmc_tpu_torch.linalg import tridiag
 
-    from openmcmc_tpu_torch.fused import mixture
+    from openmcmc_tpu_torch.fused import mixture, rj
 
     return {"spectral_smoother": spectral.smoother_sweeps_kernel, "prng_draws": prng.draws,
             "tridiag_canonical": tridiag.sample_canonical_tridiag_kernel,
@@ -396,7 +483,7 @@ def _wrappers():
             "linreg": linreg.linreg_sweeps_kernel, "spectral_linreg": spectral.spectral_linreg_sweeps_kernel,
             "random_walk": random_walk.rw_sweeps_kernel, "mmala": mmala.mmala_sweeps_kernel,
             "spectral_mmala": spectral.spectral_mmala_sweeps_kernel, "mixture": mixture.mixture_sweeps_kernel,
-            "gamma_elem_draws": prng.gamma_elem_draws}
+            "gamma_elem_draws": prng.gamma_elem_draws, "rj": rj.rj_sweeps_kernel}
 
 
 def reset_launches():
@@ -619,16 +706,16 @@ def sync_count(dev, n_burn, n_iter):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_times_us(prof):
-    """Device busy time, K3's device time (microseconds) and the five entries with
-    the most device time, from the key averages of a device-only trace (kernels,
-    copies and fills, so no time is counted twice)."""
+def device_times_us(prof, kernel="tridiag_canonical"):
+    """Device busy time, the named kernel's device time (microseconds) and the
+    five entries with the most device time, from the key averages of a
+    device-only trace (kernels, copies and fills, so no time is counted twice)."""
     def self_us(evt):
         return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
 
     events = [e for e in prof.key_averages() if self_us(e) > 0]
     top = sorted(events, key=self_us, reverse=True)[:5]
-    return (sum(self_us(e) for e in events), sum(self_us(e) for e in events if "tridiag_canonical" in e.key),
+    return (sum(self_us(e) for e in events), sum(self_us(e) for e in events if kernel in e.key),
             [(e.key[:60], e.count, round(self_us(e) / 1e3, 3)) for e in top])
 
 
@@ -1494,7 +1581,7 @@ def gamma_elem_phase(dev):
             "library_ms": None}
 
 
-def mixture_mcmc(dev, kind, n_chains=None, store_names=("means", "lams")):
+def mixture_mcmc(dev, kind, n_chains=None, store_names=("means", "lams"), gen_burn=None, gen_iter=None):
     """The mixture cells in the port: bench_all.py's ``mixture`` (n = 200, K = 2,
     numpy seed 0, RandomWalkLoop step 0.3 on [-20, 20]^2), ``mixture_conjugate``
     (its conjugate means) or ``mixture_large`` (n = 100,000, K = 16, conjugate
@@ -1535,7 +1622,8 @@ def mixture_mcmc(dev, kind, n_chains=None, store_names=("means", "lams")):
              "b0": np.full((k, 1), 1.0)}
     if kind != "mixture_large":
         state["prior"] = np.full((n, k), 0.5)
-    return MCMC(state, samplers, mdl, n_burn=n_burn, n_iter=n_iter, n_chains=n_chains or chains, seed=0,
+    return MCMC(state, samplers, mdl, n_burn=n_burn if gen_burn is None else gen_burn,
+                n_iter=n_iter if gen_iter is None else gen_iter, n_chains=n_chains or chains, seed=0,
                 store_names=None if store_names is None else list(store_names), device=dev)
 
 
@@ -1689,7 +1777,9 @@ def mixture_phase(dev, smi, kind):
         del res, z, zm
         torch.cuda.empty_cache()
 
-    gen = mixture_mcmc(dev, kind, n_chains=X_GEN_CHAINS if kind != "mixture_large" else XL_GEN_CHAINS)
+    large = kind == "mixture_large"
+    gen = mixture_mcmc(dev, kind, n_chains=XL_GEN_CHAINS if large else X_GEN_CHAINS,
+                       gen_burn=XL_GEN_BURN if large else X_GEN_BURN, gen_iter=XL_GEN_ITER if large else X_GEN_ITER)
     reset_launches()
     t0 = time.perf_counter()
     gen_res = gen.run()
@@ -1739,6 +1829,269 @@ def mixture_phase(dev, smi, kind):
     return out, launches["gamma_elem_draws"]
 
 
+def rj_mcmc(dev, lik, n_chains=None, n_burn=0, n_iter=J_ITER, store_names=("n_basis",)):
+    """bench_all.py's ``reversible_jump`` (Null likelihood) or
+    ``reversible_jump_regression`` in the port: numpy seed 0, n_max 20, 50
+    points on [-10, 10], four active knots to start, rho 8, beta ~ N(0, 4),
+    omega ~ Gamma(3, 2), the regression's y from four knots with noise sd 0.1
+    and tau_y ~ Gamma(2, 0.01); MCMC seed 0."""
+    from openmcmc_tpu_torch import MCMC, Model
+    from openmcmc_tpu_torch.basis import GaussianKernelBasis
+    from openmcmc_tpu_torch.distributions import Gamma, Normal, NullDistribution, Poisson, Uniform
+    from openmcmc_tpu_torch.linalg import structured as st
+    from openmcmc_tpu_torch.parameters import LinearCombination, MixtureParameterMatrix, MixtureParameterVector, ScaledMatrix
+    from openmcmc_tpu_torch.samplers import ManifoldMALA, NormalGamma, RandomWalkLoop, ReversibleJump
+
+    g, rng = GaussianKernelBasis(), np.random.default_rng(0)
+    X = np.sort(rng.uniform(-10, 10, (J_N, 1)), axis=0)
+    if lik:
+        th_true, beta_true = rng.uniform(-10, 10, (1, 4)), 2.0 * rng.normal(size=(4, 1))
+        y = g.make(X, th_true, np.ones((1, 4)), 4).double().numpy() @ beta_true + 0.1 * rng.normal(size=(J_N, 1))
+    k0 = 4
+    theta = np.zeros((1, J_MAX)); theta[0, :k0] = rng.uniform(-10, 10, k0)
+    omega = np.zeros((1, J_MAX)); omega[0, :k0] = 1.0
+    beta = np.zeros((J_MAX, 1)); beta[:k0] = 1.0
+    if not lik:
+        y = rng.normal(size=(J_N, 1))
+    state = {"X": X, "y": y, "n_basis": np.array([[k0]], dtype=np.int32), "theta": theta, "omega": omega,
+             "beta": beta, "alloc_beta": np.zeros((J_MAX, 1), dtype=np.int32), "mu_beta": 0.0, "tau_beta": 0.25,
+             "rho": 8.0, "a_omega": 3.0, "b_omega": 2.0, "P": st.Diagonal(torch.ones(J_N)), "tau_y": 100.0,
+             "B": g.make(X, theta, omega, k0).numpy()}
+    if lik:
+        state.update(a_tau=2.0, b_tau=0.01)
+    likelihood = Normal if lik else NullDistribution
+    mdl = Model([
+        likelihood("y", mean=LinearCombination(form={"beta": "B"}), precision=ScaledMatrix("P", "tau_y")),
+        Normal("beta", mean=MixtureParameterVector("mu_beta", "alloc_beta"),
+               precision=MixtureParameterMatrix("tau_beta", "alloc_beta"), n_active="n_basis"),
+        Poisson("n_basis", rate="rho"),
+        Uniform("theta", domain_response_lower=-10.0, domain_response_upper=10.0, n_active="n_basis"),
+        Gamma("omega", shape="a_omega", rate="b_omega", n_active="n_basis"),
+    ] + ([Gamma("tau_y", shape="a_tau", rate="b_tau")] if lik else []))
+    walk = dict(state_update_function=g.move, vector_state_update_function=g.move_vec, active_count="n_basis")
+    samplers = [
+        ManifoldMALA("beta", mdl, step=0.5, active_count="n_basis"),
+        RandomWalkLoop("theta", mdl, step=0.1, domain_limits=np.asarray([[-10.0, 10.0]]), updated_names=["theta", "B"],
+                       **walk),
+        RandomWalkLoop("omega", mdl, step=0.1, domain_limits=np.asarray([[0.5, 2.0]]), updated_names=["omega", "B"],
+                       **walk),
+        ReversibleJump("n_basis", mdl, associated_params=["theta", "omega"], n_max=J_MAX, state_birth_function=g.birth,
+                       state_death_function=g.death,
+                       matching_params={"variable": "beta", "matrix": "B", "scale": 1.0, "limits": [-10.0, 10.0]}),
+    ] + ([NormalGamma("tau_y", mdl)] if lik else [])
+    return MCMC(state, samplers, mdl, n_burn=n_burn, n_iter=n_iter, n_chains=n_chains or J_CHAINS, seed=0,
+                store_names=list(store_names), device=dev)
+
+
+def rj_inputs(mcmc, dev, n_burn, n_keep, stream):
+    """K11's inputs for ``mcmc`` as the dispatcher feeds them (the model's
+    constants, written out), over n_burn + n_keep sweeps."""
+    from openmcmc_tpu_torch.fused import rj
+
+    data, init = mcmc.data, mcmc.initial_chain_state
+    lik = len(mcmc.samplers) == 5
+    extra = dict(y=data["y"], a_tau=2.0, b_tau=0.01, tau0=100.0) if lik else {}
+    return rj.prepare(mcmc.seed, data["X"], n_burn, n_keep, mcmc.n_chains, J_MAX, init["beta"], init["theta"],
+                      init["omega"], float(init["n_basis"].reshape(())), rho=8.0, mu_beta=0.0, tau_beta=0.25,
+                      a_omega=3.0, b_omega=2.0, stream_params=stream, device=dev, **extra)
+
+
+def rj_small_phase(dev):
+    """K11 against its plain version on the same Philox bits, every stored row of
+    every chain: both variants at the CUDA tests' shapes (n_max 2 to 32, n_data 7
+    to 200, 37 and 1000 chains, n_thin 1 and 2, broadcast and per-chain warm
+    initial rows), n_burn 2, n_keep 3, parameters streamed."""
+    from openmcmc_tpu_torch.fused import rj
+
+    worst = 0.0
+    for lik, p, n, chains, n_thin, warm in ((False, 2, 7, 37, 1, False), (False, 8, 50, 1000, 2, True),
+                                            (False, 20, 200, 37, 1, False), (False, 32, 50, 37, 2, True),
+                                            (True, 2, 50, 1000, 1, True), (True, 8, 7, 37, 2, False),
+                                            (True, 20, 50, 37, 1, True), (True, 32, 200, 37, 2, False)):
+        rng = np.random.default_rng(p * 1000 + n)
+        X = np.sort(rng.uniform(-10, 10, n))
+        y = np.sin(X) + 0.1 * rng.normal(size=n) if lik else None
+        k0 = min(3, p)
+        th, om, be = np.zeros(p), np.zeros(p), np.zeros(p)
+        th[:k0], om[:k0], be[:k0] = rng.uniform(-10, 10, k0), 1.0, 1.0
+        init = None
+        if warm:
+            k = rng.integers(1, p + 1, chains)
+            act = np.arange(p)[None, :] < k[:, None]
+            init = {"beta": rng.normal(size=(chains, p)) * act, "theta": rng.uniform(-10, 10, (chains, p)) * act,
+                    "omega": rng.uniform(0.5, 2.0, (chains, p)) * act, "k": k, "tau": rng.uniform(0.5, 5.0, chains),
+                    "counters": np.tile([[3.0], [7.0], [5.0], [1.0], [9.0], [9.0]], (1, chains))}
+        data, rows, config = rj.prepare(SEED, X, 2, 3, chains, p, be, th, om, k0, rho=min(8.0, p / 2 + 0.5),
+                                        stream_params=True, n_thin=n_thin, init=init, y=y, a_tau=2.0, b_tau=0.1,
+                                        device=dev)
+        got = rj.rj_sweeps_kernel(data, rows, chains, config=config)
+        want = rj.rj_sweeps_plain(data, rows, chains, config=config)
+        torch.cuda.synchronize()
+        agree = int((got == want).flatten(1).all(1).sum())
+        if agree != chains or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"rj_small: lik {lik}, n_max {p}, n_data {n}: only {agree} of {chains} chains equal "
+                                 "the plain version")
+        worst = max(worst, float(torch.max(torch.abs(got - want))))
+        log("rj_small", f"{'regression' if lik else 'Null'}, n_max {p}, n_data {n}, {chains} chains, n_thin {n_thin}"
+            f"{', warm rows' if warm else ''}: all chains equal the plain version bit for bit (counts, counters, "
+            f"accepts and values); births+deaths accepted {int(got[:, -1, 5].sum())}")
+    return worst
+
+
+def rj_marginal():
+    """Mean and sd of the [1, J_MAX]-truncated Poisson(8)."""
+    from scipy.stats import poisson
+
+    ks = np.arange(1, J_MAX + 1)
+    pmf = poisson.pmf(ks, 8.0)
+    pmf = pmf / pmf.sum()
+    mean = float((ks * pmf).sum())
+    return mean, float(np.sqrt((ks * ks * pmf).sum() - mean * mean))
+
+
+def rj_phase(dev, smi, lik):
+    """One reversible-jump cell: MCMC.run(engine="auto") with one K11 launch and
+    no other, K11 against its plain version on a 5-sweep full-width streamed
+    run, the statistical checks, the generic twin and the times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openmcmc_tpu_torch.diagnostics import ess_per_param
+    from openmcmc_tpu_torch.fused import rj
+
+    kind = "rj_regression" if lik else "rj"
+    mcmc = rj_mcmc(dev, lik, store_names=("n_basis", "tau_y") if lik else ("n_basis",))
+    n_chains, n_iter = mcmc.n_chains, mcmc.n_iter
+    if mcmc.n_burn != 0 or mcmc.n_thin != 1:
+        raise AssertionError(f"{kind}: the bound reads every sweep's count from the store (0 burn-in, no thinning)")
+    reset_launches()
+    torch.cuda.synchronize()
+    # the main path's run under a device-only trace: its K11 launch's device time
+    # is the kernel time, and the same run's wall clock the end-to-end time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = mcmc.run(engine="auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    busy_us, k11_us, _ = device_times_us(prof, "rj_kernel")
+    if not k11_us > 0:
+        raise AssertionError(f"{kind}: the profiler reported no device time for K11 in the main path's run")
+    run_ms = k11_us / 1e3
+    if res.engine != "fused_rj" or launches != only("rj", 1):
+        raise AssertionError(f"{kind}: engine {res.engine}, kernel launches {launches}")
+    nb = res.store["n_basis"]
+    if tuple(nb.shape) != (n_chains, n_iter, 1, 1) or nb.dtype != torch.int32 or nb.device.type != DEVICE_TYPE:
+        raise AssertionError(f"{kind}: store n_basis {tuple(nb.shape)} {nb.dtype} on {nb.device}")
+    if int(nb.min()) < 1 or int(nb.max()) > J_MAX or not bool(torch.all(torch.isfinite(res.log_post))):
+        raise AssertionError(f"{kind}: counts outside [1, {J_MAX}] or non-finite log_post")
+    k = nb[..., 0, 0].to(torch.float32)
+    k0 = float(mcmc.initial_chain_state["n_basis"].reshape(()))
+    k_start = torch.cat([torch.full((n_chains, 1), k0, device=nb.device), k[:, :-1]], dim=1).to(torch.int64).cpu()
+    run_accepts = sum(float(res.stats[name]["accept"].double().sum()) for name in ("beta", "theta", "omega"))
+    acc = {name: round(float(v.double().mean()), 2) for name, v in res.acceptance.items()}
+    ess = float(ess_per_param(k[..., None], chunk_size=8)[0])
+    summary = {"acceptance_pct": acc, "ess_n_basis": ess}
+    if lik:
+        tau = res.store["tau_y"][..., 0, 0]
+        kept = {"n_basis": k[:, JR_SKIP:], "tau_y": tau[:, JR_SKIP:]}
+        fused = moments({name: v[..., None] for name, v in kept.items()}, 8)
+        msg = (f"posterior means after {JR_SKIP} draws: n_basis {float(fused['n_basis'][0]):.4f}, tau_y "
+               f"{float(fused['tau_y'][0]):.4f}")
+    else:
+        thin = k[:, ::10].double()
+        exact_mean, exact_sd = rj_marginal()
+        mean, sd = float(thin.mean()), float(thin.std())
+        if not (abs(mean - exact_mean) < 0.25 and abs(sd - exact_sd) < 0.35):
+            raise AssertionError(f"{kind}: count marginal mean {mean:.4f} sd {sd:.4f}, truncated Poisson(8) "
+                                 f"{exact_mean:.4f} {exact_sd:.4f} (bounds 0.25, 0.35)")
+        msg = (f"count marginal thinned by 10: mean {mean:.4f} (truncated Poisson(8) {exact_mean:.4f}, bound 0.25), "
+               f"sd {sd:.4f} ({exact_sd:.4f}, bound 0.35)")
+    log(kind, f"MCMC.run(engine='auto'): engine {res.engine}, kernel launches {launches}, n_basis "
+        f"{tuple(nb.shape)} int32, first run {wall:.3f} s; {msg}; acceptance % {acc}; ESS of n_basis {ess:.1f} over "
+        f"{n_chains * n_iter} draws; mean count at a sweep's start {float(k_start.double().mean()):.4f}")
+    del res, nb, k
+    torch.cuda.empty_cache()
+
+    data, rows, config = rj_inputs(mcmc, dev, 0, 5, True)
+    got = rj.rj_sweeps_kernel(data, rows, n_chains, config=config)
+    want, plain_ms = cuda_call_ms(lambda: rj.rj_sweeps_plain(data, rows, n_chains, config=config))
+    agree = int((got == want).flatten(1).all(1).sum())
+    err = float(torch.max(torch.abs(got - want)))
+    if agree != n_chains:
+        raise AssertionError(f"{kind}: only {agree} of {n_chains} chains equal the plain version on 5 sweeps")
+    ms = cuda_ms(lambda: rj.rj_sweeps_kernel(data, rows, n_chains, config=config), 3)
+    k5_start = torch.cat([torch.full((n_chains, 1), k0, device=got.device), got[:, :-1, 0]], dim=1)
+    k5_start = k5_start.to(torch.int64).cpu()
+    k5_accepts = float(got[:, -1, 2:5].double().sum())  # the counters start at zero
+    k5_bytes = 4 * (data.numel() + rows.numel() + got.numel())
+    del got, want
+
+    if lik:
+        sm = rj_mcmc(dev, lik, n_iter=20, store_names=("n_basis", "beta", "theta", "omega", "tau_y"))
+        reset_launches()
+        res = sm.run(engine="auto")
+        torch.cuda.synchronize()
+        if res.engine != "fused_rj" or read_launches() != only("rj", 1):
+            raise AssertionError(f"{kind}: the streamed run ran {res.engine}")
+        g = sm.samplers[3].state_birth_function.__self__
+        worst_lp = 0.0
+        for c in (0, 1, n_chains - 1):
+            for t in (0, 10, 19):
+                state = dict(sm.data)
+                state.update({name: v[c, t] for name, v in res.store.items()})
+                state["B"] = g.make(state["X"], state["theta"], state["omega"], state["n_basis"])
+                want_lp = float(sm.model.log_p(state))
+                worst_lp = max(worst_lp, abs(float(res.log_post[c, t]) - want_lp) / max(1.0, abs(want_lp)))
+        if not worst_lp <= 1e-4:
+            raise AssertionError(f"{kind}: log_post differs from Model.log_p by {worst_lp:.3g} (relative)")
+        log(kind, f"streamed run (20 draws, beta/theta/omega/tau_y stored): one K11 launch, log_post within "
+            f"{worst_lp:.3g} (relative) of Model.log_p at the stored draws of 3 chains x 3 draws (limit 1e-4)")
+        del res, sm
+
+    gen = rj_mcmc(dev, lik, n_chains=J_GEN_CHAINS, n_burn=JR_GEN_BURN if lik else J_GEN_BURN,
+                  n_iter=JR_GEN_ITER if lik else J_GEN_ITER, store_names=("n_basis", "tau_y") if lik else ("n_basis",))
+    reset_launches()
+    t0 = time.perf_counter()
+    gen_res = gen.run()
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    if gen_res.engine != "generic" or any(read_launches().values()):
+        raise AssertionError(f"{kind}: the generic twin ran {gen_res.engine} with kernel launches {read_launches()}")
+    gk = gen_res.store["n_basis"][..., 0, 0].to(torch.float32)
+    if lik:
+        twin = moments({"n_basis": gk[..., None], "tau_y": gen_res.store["tau_y"][..., 0, :]}, 8)
+        zs = moments_z(fused, twin)
+        what = "posterior means of n_basis and tau_y"
+    else:
+        gmean, gess = float(gk.double().mean()), float(ess_per_param(gk[..., None], chunk_size=8)[0])
+        zs = abs(gmean - exact_mean) / (exact_sd / np.sqrt(gess))
+        what = f"count mean {gmean:.4f} (ESS {gess:.1f}) against the truncated Poisson(8)"
+    del gen_res
+    torch.cuda.empty_cache()
+    if not zs < 5.0:
+        raise AssertionError(f"{kind}: generic twin's {what} off by {zs:.2f} MC sd")
+    log(kind, f"kernel and plain version equal on all {agree} chains over 5 sweeps, parameters streamed (max abs err "
+        f"{err:.3g}); generic twin ({gen.n_chains} chains, {gen.n_burn} + {gen.n_iter} sweeps, {gen_wall:.3f} s): "
+        f"{what} within {zs:.2f} MC sd (limit 5)")
+
+    data, rows, config = rj_inputs(mcmc, dev, mcmc.n_burn, n_iter, False)  # the main run's sizes; no launch
+    run_bytes = 4 * (data.numel() + rows.numel() + n_chains * n_iter * config.prm.n_rows)
+    run_flop = rj_flop(k_start, J_MAX, J_N, lik, run_accepts)
+    run_bound = (*bound(run_bytes, run_flop), run_flop, run_bytes)
+    n_flop = rj_flop(k5_start, J_MAX, J_N, lik, k5_accepts)
+    bound_ms, bound_by = bound(k5_bytes, n_flop)
+    log(kind, f"{smi}: the main path's run: K11 {run_ms:.3f} ms of device time (profiler), bound {run_bound[0]:.4f} ms "
+        f"({run_bound[1]}: {run_bound[2]:.4g} FLOP at the run's counts, {run_bound[3]:.4g} B), "
+        f"{run_ms / run_bound[0]:.1f}x; MCMC.run end to end {1e3 * wall:.3f} ms under the trace, device busy "
+        f"{busy_us / 1e3:.3f} ms, idle {100 * (1 - busy_us / (1e6 * wall)):.2f} %")
+    log(kind, f"{smi}: 5 sweeps: kernel {ms:.4f} ms (median of 3), plain {plain_ms:.1f} ms (the check's call), bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {n_flop:.4g} FLOP, {k5_bytes:.4g} B)")
+    log(kind, f"{smi}: ESS/s of n_basis {ess / (run_ms / 1e3):.4g} on kernel time, {ess / wall:.4g} end to end")
+    return {"launches": launches["rj"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "run_ms": run_ms, "run_bound_ms": run_bound[0],
+            "run_bound_by": run_bound[1], "run_e2e_ms": 1e3 * wall, "ess_per_s": ess / (run_ms / 1e3), **summary}
+
+
 def main():
     smi = device_phase()
     dev = torch.device("cuda", 0)
@@ -1774,6 +2127,9 @@ def main():
     for kind in ("mixture", "mixture_conjugate", "mixture_large"):
         k10[kind], n = mixture_phase(dev, smi, kind)
         gamma_elem_launches += n
+    torch.cuda.empty_cache()
+    k11_small_err = rj_small_phase(dev)
+    k11 = {kind: rj_phase(dev, smi, lik) for kind, lik in (("rj", False), ("rj_regression", True))}
     k4 = {"route": "cuda", "source": "openmcmc_tpu_torch/csrc/gmrf_smoother.cu", "replaces": REPLACES["gmrf_smoother"]}
     k7_src = {"route": "cuda", "source": "openmcmc_tpu_torch/csrc/random_walk.cu", "replaces": REPLACES["random_walk"]}
     kernels = [
@@ -1798,6 +2154,9 @@ def main():
     ] + [
         {"name": kind, "route": "cuda", "source": "openmcmc_tpu_torch/csrc/mixture.cu", "replaces": REPLACES["mixture"],
          **entry, "max_abs_err": max(entry["max_abs_err"], k10_small_err)} for kind, entry in k10.items()
+    ] + [
+        {"name": kind, "route": "cuda", "source": "openmcmc_tpu_torch/csrc/rj.cu", "replaces": REPLACES["rj"],
+         **entry, "max_abs_err": max(entry["max_abs_err"], k11_small_err)} for kind, entry in k11.items()
     ]
     # prng_draws and truncnorm_draws are not launched by any path: their device
     # functions run inlined in the smoother kernels, and these kernels only

@@ -17,7 +17,10 @@ manifold MALA (``csrc/mmala.cu``, p <= 16; ``csrc/spectral_mmala.cu``,
 p <= 256); and the Gaussian mixture: the mixture parameter forms,
 ``Categorical``, ``MixtureAllocation`` and the mixture branches of the conjugate
 samplers in the generic driver, and the fused mixture engine
-(``csrc/mixture.cu``). Everything off those paths raises
+(``csrc/mixture.cu``); and reversible jump: padded state (``padding``), the
+Gaussian-kernel basis hooks (``basis``), the masked priors, ``ReversibleJump`` in
+the generic driver and the fused reversible-jump engine (``csrc/rj.cu``).
+Everything off those paths raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 
 Importing the package sets the full-fp32 matmul invariant once: no TF32 anywhere,
@@ -37,11 +40,13 @@ torch.set_float32_matmul_precision("highest")
 torch.log(torch.linspace(0.5, 2.0, 1 << 16))
 
 from openmcmc_tpu_torch import (  # noqa: E402
+    basis,
     convert,
     diagnostics,
     distributions,
     fused,
     linalg,
+    padding,
     parameters,
     samplers,
 )
@@ -52,11 +57,13 @@ __all__ = [
     "MCMC",
     "MCMCResult",
     "Model",
+    "basis",
     "convert",
     "diagnostics",
     "distributions",
     "fused",
     "linalg",
+    "padding",
     "parameters",
     "samplers",
 ]

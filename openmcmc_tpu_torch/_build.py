@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gmrf_smoother.cu", "linreg.cu", "mixture.cu", "mmala.cu", "prng_draws.cu", "random_walk.cu",
+SOURCES = ("gmrf_smoother.cu", "linreg.cu", "mixture.cu", "mmala.cu", "prng_draws.cu", "random_walk.cu", "rj.cu",
            "spectral_linreg.cu", "spectral_mmala.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
 HEADERS = ("layout.cuh", "philox.cuh", "prng.cuh", "spectral_store.cuh")
 NVCC_FLAGS = (
@@ -133,6 +133,8 @@ def library() -> ctypes.CDLL:
     lib.gamma_elem_draws_launch.restype = ctypes.c_int
     lib.mixture_launch.argtypes = [_P] * 9
     lib.mixture_launch.restype = ctypes.c_int
+    lib.rj_launch.argtypes = [_P] * 6
+    lib.rj_launch.restype = ctypes.c_int
     return lib
 
 

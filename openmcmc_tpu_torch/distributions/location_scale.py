@@ -7,10 +7,12 @@ Diagonal): its density, its draw, box-truncated or not, and its gradient and
 negative Hessian (analytic for the response and a linear mean parameter,
 autodiff otherwise). A truncated
 Normal keeps the reference's unrenormalised density (-inf outside the box) and
-draws by rejection-initialised red-black Gibbs; ``n_active`` waits for
-reversible jump (ROADMAP.md queue 1: reversible jump). Entries may carry leading
-chain axes: state[name] is (p, n) or (..., p, n), and densities keep the batch
-axes.
+draws by rejection-initialised red-black Gibbs. ``n_active`` (the padded
+reversible-jump convention) masks the response dimensions at or past the count
+out of the density and the gradient; it needs a Diagonal precision.
+:class:`NullDistribution` contributes zero (the reversible jump's prior-recovery
+likelihood). Entries may carry leading chain axes: state[name] is (p, n) or
+(..., p, n), and densities keep the batch axes.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from openmcmc_tpu_torch.parameters import (
 )
 
 _LOG_2PI = math.log(2.0 * math.pi)
+# log(2 pi) rounded as the JAX package's masked density takes it: a float32 log
+_LOG_2PI_F32 = float(np.log(np.float32(2.0 * math.pi)))
 _MEAN_TYPES = (Identity, LinearCombination, MixtureParameterVector)
 _PRECISION_TYPES = (Identity, ScaledMatrix, MixtureParameterMatrix)
 
@@ -65,20 +69,45 @@ class LocationScale(Distribution):
         return self.mean.get_param_list() + self.precision.get_param_list()
 
 
+class NullDistribution(LocationScale):
+    """Zero log-density, gradient and Hessian: the likelihood of the reversible
+    jump's prior-recovery configuration. Batch axes of the response are kept."""
+
+    def log_p(self, state: dict, by_observation: bool = False):
+        x = state[self.response]
+        if by_observation:
+            return torch.zeros(x.shape[:-2] + x.shape[-1:], dtype=torch.float32, device=x.device)
+        return torch.zeros(x.shape[:-2], dtype=torch.float32, device=x.device)
+
+    def grad_log_p(self, state: dict, param: str, hessian_required: bool = True):
+        x = state[param]
+        grad = torch.zeros_like(x, dtype=torch.float32)
+        if hessian_required:
+            d = x.shape[-2] * x.shape[-1]
+            return grad, torch.zeros((d, d), dtype=torch.float32, device=x.device)
+        return grad
+
+    def sample(self, key, state: dict, n: int = 1, batch_shape=()):
+        return None
+
+
 @dataclass(frozen=True, init=False)
 class Normal(LocationScale):
-    """Multivariate normal in precision form."""
+    """Multivariate normal in precision form.
+
+    ``n_active`` names an integer count entry: response dimensions at index >=
+    count are padding and contribute nothing to the density or the gradient
+    (their Hessian rows are the identity). It requires a Diagonal precision, the
+    reversible jump's own case."""
 
     domain_response_lower: Optional[tuple]
     domain_response_upper: Optional[tuple]
+    n_active: Optional[str]
 
     def __init__(self, response, mean, precision, domain_response_lower=None, domain_response_upper=None,
                  n_active=None):
         super().__init__(response, mean, precision)
-        if n_active is not None:
-            raise NotImplementedError(
-                "Normal(n_active=...) is not ported yet (ROADMAP.md queue 1: reversible jump)"
-            )
+        object.__setattr__(self, "n_active", n_active)
 
         def conv(v):
             if v is None:
@@ -89,8 +118,36 @@ class Normal(LocationScale):
         object.__setattr__(self, "domain_response_upper", conv(domain_response_upper))
 
     @property
+    def _dist_params(self) -> List[str]:
+        extra = [self.n_active] if self.n_active else []
+        return self.mean.get_param_list() + self.precision.get_param_list() + extra
+
+    @property
     def truncated(self) -> bool:
         return self.domain_response_lower is not None or self.domain_response_upper is not None
+
+    def _active_mask(self, state: dict) -> torch.Tensor:
+        """(..., d) float mask of the active response dimensions."""
+        from openmcmc_tpu_torch.padding import active_mask
+
+        return active_mask(state[self.n_active], state[self.response].shape[-2], dtype=torch.float32)
+
+    def _diagonal_precision(self, state: dict) -> torch.Tensor:
+        """The (..., d) diagonal of the precision; ``n_active`` needs one."""
+        Q = st.as_structured(self.precision.predictor(state))
+        if not isinstance(Q, st.Diagonal):
+            raise TypeError("Normal with n_active requires a Diagonal-structured precision")
+        return Q.diag_
+
+    def _masked_log_p(self, state: dict, by_observation: bool) -> torch.Tensor:
+        """log_p over the active dimensions: 1/2 (log lam - log 2 pi - lam r^2)
+        per dimension, masked, summed over dimensions."""
+        mask = self._active_mask(state)[..., None]
+        r = state[self.response] - self.mean.predictor(state)
+        lam = self._diagonal_precision(state)[..., None]
+        terms = 0.5 * (torch.log(lam) - _LOG_2PI_F32 - lam * r * r) * mask
+        log_p = torch.sum(terms, dim=-2)
+        return log_p if by_observation else torch.sum(log_p, dim=-1)
 
     def _bounds(self, device=None):
         """The box as (p, 1) float32 columns (or a (1, 1) scalar), None for an open side."""
@@ -104,11 +161,14 @@ class Normal(LocationScale):
         (a 0-d tensor for an unbatched state)."""
         x = state[self.response]
         lo, hi = self._bounds(x.device)
+        active = None if self.n_active is None else self._active_mask(state)[..., None] > 0
         bad = torch.zeros(x.shape[:-2], dtype=torch.bool, device=x.device)
-        if lo is not None:
-            bad = bad | torch.any(x < lo, dim=(-2, -1))
-        if hi is not None:
-            bad = bad | torch.any(x > hi, dim=(-2, -1))
+        for viol in (None if lo is None else x < lo, None if hi is None else x > hi):
+            if viol is None:
+                continue
+            if active is not None:
+                viol = viol & active
+            bad = bad | torch.any(viol, dim=(-2, -1))
         return bad
 
     def unscaled_log_det(self, state: dict) -> float:
@@ -125,7 +185,10 @@ class Normal(LocationScale):
         from ``log_det`` when the caller computed it once (:meth:`unscaled_log_det`).
         A truncated Normal is -inf where the response leaves the box (the
         reference's unrenormalised truncation)."""
-        log_p = self._log_p(state, by_observation, log_det)
+        if self.n_active is not None:
+            log_p = self._masked_log_p(state, by_observation)
+        else:
+            log_p = self._log_p(state, by_observation, log_det)
         if self.truncated:
             bad = self.out_of_domain(state)
             log_p = torch.where(bad[..., None] if by_observation else bad, -torch.inf, log_p)
@@ -159,7 +222,17 @@ class Normal(LocationScale):
           replicate columns ((..., p, 1) and (..., p, p));
         - anything else by autodiff through log_p (the base class).
 
-        A Hessian built from data alone stays unbatched and broadcasts."""
+        A Hessian built from data alone stays unbatched and broadcasts. With
+        ``n_active`` the response's inactive dimensions get a zero gradient and
+        a unit Hessian diagonal (Fisher preconditioning stays invertible)."""
+        if param == self.response and self.n_active is not None:
+            mask = self._active_mask(state)
+            lam = self._diagonal_precision(state)
+            r = state[self.response] - self.mean.predictor(state)
+            grad = -(lam[..., None] * r) * mask[..., None]
+            if not hessian_required:
+                return grad
+            return grad, torch.diag_embed(lam * mask + (1.0 - mask))
         if param == self.response:
             Q = st.as_structured(self.precision.predictor(state))
             grad = -st.matvec(Q, state[self.response] - self.mean.predictor(state))

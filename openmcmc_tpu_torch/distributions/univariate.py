@@ -1,17 +1,19 @@
 """Univariate distributions (port of ``openmcmc_tpu/distributions/univariate.py``).
 
-Ported so far: :class:`Gamma`'s ``log_p`` and ``sample`` and
-:class:`Categorical`'s, with leading chain axes on the entries kept in the
-result. Poisson and Uniform come with the reversible-jump slice (ROADMAP.md
-queue 1: reversible jump).
+``log_p`` and ``sample`` of :class:`Gamma`, :class:`Poisson`, :class:`Uniform`
+and :class:`Categorical`, with leading chain axes on the entries kept in the
+result. ``n_active`` on Gamma and Uniform names an integer count entry: the
+replicate columns at or past the count are padding (the reversible jump's
+convention, :mod:`openmcmc_tpu_torch.padding`) and contribute zero.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from openmcmc_tpu_torch.distributions.base import Distribution
@@ -26,35 +28,50 @@ def _as_parameter(value, what: str) -> Parameter:
     return value
 
 
+def _column_mask(state: dict, count_name: str, n: int) -> torch.Tensor:
+    """(..., n) float mask of the active replicate columns."""
+    from openmcmc_tpu_torch.padding import active_mask
+
+    return active_mask(state[count_name], n, dtype=torch.float32)
+
+
 @dataclass(frozen=True, init=False)
 class Gamma(Distribution):
-    """Gamma in shape/rate convention: f(x) proportional to x^(a-1) exp(-b x)."""
+    """Gamma in shape/rate convention: f(x) proportional to x^(a-1) exp(-b x).
+
+    With ``n_active`` the padded columns (which may hold zeros) are evaluated at
+    1 and masked out."""
 
     shape: Parameter
     rate: Parameter
+    n_active: Optional[str]
 
     #: log_p is a sum of per-replicate-column terms, each reading only that column
     #: of the response (RandomWalkLoop's vectorized path reads this)
     column_factorized = True
 
     def __init__(self, response: str, shape, rate, n_active=None):
-        if n_active is not None:
-            raise NotImplementedError(
-                "Gamma(n_active=...) is not ported yet (ROADMAP.md queue 1: reversible jump)"
-            )
         object.__setattr__(self, "response", response)
         object.__setattr__(self, "shape", _as_parameter(shape, "shape"))
         object.__setattr__(self, "rate", _as_parameter(rate, "rate"))
+        object.__setattr__(self, "n_active", n_active)
 
     @property
     def _dist_params(self) -> List[str]:
-        return self.shape.get_param_list() + self.rate.get_param_list()
+        extra = [self.n_active] if self.n_active else []
+        return self.shape.get_param_list() + self.rate.get_param_list() + extra
 
     def log_p(self, state: dict, by_observation: bool = False):
         x = state[self.response]
         a = self.shape.predictor(state)
         b = self.rate.predictor(state)
-        log_p = torch.sum((a - 1.0) * torch.log(x) - b * x + a * torch.log(b) - torch.lgamma(a), dim=-2)
+        if self.n_active is not None:
+            mask = _column_mask(state, self.n_active, x.shape[-1])
+            x_safe = torch.where(mask[..., None, :] > 0, x, torch.ones((), dtype=x.dtype, device=x.device))
+            terms = (a - 1.0) * torch.log(x_safe) - b * x_safe + a * torch.log(b) - torch.lgamma(a)
+            log_p = torch.sum(terms, dim=-2) * mask
+        else:
+            log_p = torch.sum((a - 1.0) * torch.log(x) - b * x + a * torch.log(b) - torch.lgamma(a), dim=-2)
         return log_p if by_observation else torch.sum(log_p, dim=-1)
 
     def sample(self, key, state: dict, n: int = 1, batch_shape=()):
@@ -68,6 +85,97 @@ class Gamma(Distribution):
         batch = torch.broadcast_shapes(tuple(batch_shape), a.shape[:-2], b.shape[:-2])
         conc = a.expand(batch + (p, n)).contiguous()
         return torch._standard_gamma(conc, generator=key.generator) / b
+
+
+@dataclass(frozen=True, init=False)
+class Poisson(Distribution):
+    """Poisson counts: log_p sums x log(rate) - rate - lgamma(x + 1) over the
+    dimension axis."""
+
+    rate: Parameter
+
+    #: per-column log_p terms depend only on their own column (see Gamma)
+    column_factorized = True
+
+    def __init__(self, response: str, rate):
+        object.__setattr__(self, "response", response)
+        object.__setattr__(self, "rate", _as_parameter(rate, "rate"))
+
+    @property
+    def _dist_params(self) -> List[str]:
+        return self.rate.get_param_list()
+
+    def log_p(self, state: dict, by_observation: bool = False):
+        x = state[self.response]
+        rate = self.rate.predictor(state)
+        log_p = torch.sum(x * torch.log(rate) - rate - torch.lgamma(x + 1.0), dim=-2)
+        return log_p if by_observation else torch.sum(log_p, dim=-1)
+
+    def sample(self, key, state: dict, n: int = 1, batch_shape=()):
+        """Poisson(rate) draws (..., p, n) as floats from the first column of the
+        rate, by ``torch.poisson`` on the key's generator (the JAX package uses
+        ``jax.random.poisson``)."""
+        rate = self.rate.predictor(state)[..., :1]
+        batch = torch.broadcast_shapes(tuple(batch_shape), rate.shape[:-2])
+        lam = rate.expand(batch + (rate.shape[-2], n)).contiguous()
+        return torch.poisson(lam, generator=key.generator)
+
+
+@dataclass(frozen=True, init=False)
+class Uniform(Distribution):
+    """Uniform over a p-dimensional box [lower, upper]; with ``n_active`` the
+    padded replicate columns contribute zero."""
+
+    domain_response_lower: tuple
+    domain_response_upper: tuple
+    n_active: Optional[str]
+
+    #: per-column log_p terms depend only on their own column (see Gamma)
+    column_factorized = True
+
+    def __init__(self, response: str, domain_response_lower=0.0, domain_response_upper=1.0, n_active=None):
+        lo = np.atleast_1d(np.asarray(domain_response_lower, dtype=float)).reshape(-1)
+        hi = np.atleast_1d(np.asarray(domain_response_upper, dtype=float)).reshape(-1)
+        object.__setattr__(self, "response", response)
+        object.__setattr__(self, "domain_response_lower", tuple(lo.tolist()))
+        object.__setattr__(self, "domain_response_upper", tuple(hi.tolist()))
+        object.__setattr__(self, "n_active", n_active)
+
+    @property
+    def _dist_params(self) -> List[str]:
+        return [self.n_active] if self.n_active else []
+
+    def _limits(self, state: dict):
+        """The box as float32 (d, 1) columns on the response's device."""
+        x = state[self.response]
+        d = x.shape[-2]
+        f = dict(dtype=torch.float32, device=x.device)
+        lo = torch.tensor(self.domain_response_lower, **f).reshape(-1, 1).expand(d, 1)
+        hi = torch.tensor(self.domain_response_upper, **f).reshape(-1, 1).expand(d, 1)
+        return lo, hi
+
+    def domain_range(self, state: dict) -> torch.Tensor:
+        lo, hi = self._limits(state)
+        return hi - lo
+
+    def log_p(self, state: dict, by_observation: bool = False):
+        x = state[self.response]
+        n = x.shape[-1]
+        log_p = -torch.sum(torch.log(self.domain_range(state)))
+        if self.n_active is not None:
+            mask = _column_mask(state, self.n_active, n)
+            return mask * log_p if by_observation else torch.sum(mask, dim=-1) * log_p
+        batch = x.shape[:-2]
+        if by_observation:
+            return torch.ones(batch + (n,), dtype=torch.float32, device=x.device) * log_p
+        return torch.full(batch, float(n), dtype=torch.float32, device=x.device) * log_p
+
+    def sample(self, key, state: dict, n: int = 1, batch_shape=()):
+        """Uniform draws (..., d, n) from the key's generator."""
+        lo, hi = self._limits(state)
+        d = lo.shape[0]
+        u = torch.rand(tuple(batch_shape) + (d, n), generator=key.generator, dtype=torch.float32, device=lo.device)
+        return lo + (hi - lo) * u
 
 
 @dataclass(frozen=True, init=False)

@@ -18,10 +18,12 @@ precomputed Cholesky for p <= 16 (``fused_mmala``, kernel K8) or the spectral on
 for p <= 256 (``fused_mmala_spectral``, kernel K9); then the Gaussian-mixture
 matcher, to the mixture engine with a random walk on the component means
 (``fused_mixture``) or their conjugate draw (``fused_mixture_conjugate``), both
-kernel K10. The Metropolis runners return the JAX package's statistics: accept
-and proposal counts over burn-in and sampling, and the adapted log_step. The
-reversible-jump matcher, resume and mesh sharding are not ported (ROADMAP.md
-queue 1: reversible jump, operations, parallel).
+kernel K10; and between the last two, as in the JAX package, the
+reversible-jump matcher (``fused_rj``, kernel K11) for the knot-basis regression
+with a Null or a Gaussian likelihood. The Metropolis runners return the JAX
+package's statistics: accept and proposal counts over burn-in and sampling, and
+the adapted log_step. Resume and mesh sharding are not ported (ROADMAP.md queue
+1: operations, parallel).
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ def match_fused_engine(mcmc) -> Optional[Callable]:
         matched.n_burn = mcmc.n_burn * mcmc.n_thin
         matched.n_thin = 1
         matched._kernel_thin = mcmc.n_thin
-    for matcher in (_match_smoother, _match_linreg, _match_rw, _match_mmala, _match_mixture):
+    for matcher in (_match_smoother, _match_linreg, _match_rw, _match_mmala, _match_rj, _match_mixture):
         runner = matcher(matched)
         if runner is not None:
             if mcmc.model.response is not None and not _fitted_ok(mcmc, runner):
@@ -508,6 +510,216 @@ def _match_mmala(mcmc) -> Optional[Callable]:
 
     run.engine_name = engine_name
     run.store_keys = frozenset({latent})
+    return run
+
+
+# The JAX engine's streamed reversible-jump draws: (n_iter, rows, chains rounded
+# up to its 1024-lane block) float32, capped at 4 GB (openmcmc_tpu/fused/rj.py:
+# BLOCK_B, OUT_ROWS; dispatch.py:812-819). The port stores them unpadded, but caps
+# them by the same formula so that both packages pick the same engine.
+_JAX_RJ_BLOCK_B, _JAX_RJ_OUT_ROWS = 1024, 8
+RJ_STREAM_CAP_BYTES = 4 << 30
+
+
+def _jax_rj_stream_bytes(n_chains: int, n_iter: int, n_thin: int, lik: bool, n_max: int) -> int:
+    """Bytes of the JAX engine's streamed-draw buffer for these sizes."""
+    padded = n_chains + (-n_chains) % _JAX_RJ_BLOCK_B
+    return 4 * n_iter * n_thin * (_JAX_RJ_OUT_ROWS + int(lik) + 3 * n_max) * padded
+
+
+def _match_rj(mcmc) -> Optional[Callable]:
+    """The reversible-jump knot-basis regression:
+
+        count ~ Poisson(rho), theta_j ~ U(lo, hi), omega_j ~ Gamma(a, b),
+        beta ~ N(mu_b, (tau_b I)^-1)  (padded to n_max, n_active = count),
+
+    with a Null likelihood (prior recovery) and the sweep [ManifoldMALA(beta),
+    RandomWalkLoop(theta), RandomWalkLoop(omega), ReversibleJump(count, matched
+    transitions on beta)], or with y ~ N(B beta, (tau I)^-1) and a fifth sampler
+    NormalGamma(tau). The basis hooks must be bound methods of one
+    :class:`openmcmc_tpu_torch.basis.GaussianKernelBasis`: that is what tells the
+    matcher the basis is normpdf(X; theta, omega), which the kernel computes
+    itself. Every check of the JAX package's ``_match_rj``."""
+    from openmcmc_tpu_torch.basis import GaussianKernelBasis
+    from openmcmc_tpu_torch.distributions.location_scale import NullDistribution
+    from openmcmc_tpu_torch.distributions.univariate import Poisson, Uniform
+    from openmcmc_tpu_torch.samplers.reversible_jump import ReversibleJump
+
+    if len(mcmc.samplers) not in (4, 5):
+        return None
+    lik = len(mcmc.samplers) == 5
+    if lik and not isinstance(mcmc.samplers[4], NormalGamma):
+        return None
+    mala, rw_th, rw_om, rj = mcmc.samplers[:4]
+    if not isinstance(mala, ManifoldMALA) or not isinstance(rj, ReversibleJump):
+        return None
+    if not (isinstance(rw_th, RandomWalkLoop) and isinstance(rw_om, RandomWalkLoop)):
+        return None
+    if any(s.adapt_step for s in (mala, rw_th, rw_om)):
+        return None
+    if any(s.step_size.numel() != 1 for s in (mala, rw_th, rw_om)):
+        return None
+    count, beta, theta, omega = rj.param, mala.param, rw_th.param, rw_om.param
+    if rj.associated_params != [theta, omega] or rj.birth_probability != 0.5:
+        return None
+    if {mala.active_count, rw_th.active_count, rw_om.active_count} != {count}:
+        return None
+
+    def bound_to(fn, method):
+        return getattr(fn, "__func__", None) is method and isinstance(getattr(fn, "__self__", None), GaussianKernelBasis)
+
+    if not bound_to(rj.state_birth_function, GaussianKernelBasis.birth):
+        return None
+    g = rj.state_birth_function.__self__
+    if not bound_to(rj.state_death_function, GaussianKernelBasis.death):
+        return None
+    for rw in (rw_th, rw_om):
+        if not (bound_to(rw.state_update_function, GaussianKernelBasis.move)
+                and bound_to(rw.vector_state_update_function, GaussianKernelBasis.move_vec)
+                and rw.state_update_function.__self__ is g and rw.vector_state_update_function.__self__ is g):
+            return None
+    if (g.theta, g.omega, g.count) != (theta, omega, count):
+        return None
+    mp = rj.matching_params
+    if mp is None or mp.get("variable") != beta or mp.get("matrix") != g.matrix:
+        return None
+    if mp.get("limits") is None or mp.get("scale") is None:
+        return None
+
+    # the model: the likelihood, the four priors and, with a likelihood, tau's
+    y_name = None
+    for key, dist in mcmc.model.items():
+        if lik:
+            if key != beta and isinstance(dist, Normal):
+                y_name = key
+        elif isinstance(dist, NullDistribution):
+            y_name = key
+    if y_name is None:
+        return None
+    tau_name, hyp_tau, tau0, y_data = None, None, None, None
+    expected = {y_name, beta, theta, omega, count}
+    if lik:
+        tau_name = mcmc.samplers[4].param
+        expected.add(tau_name)
+    if set(mcmc.model.keys()) != expected:
+        return None
+    y_dist = mcmc.model[y_name]
+    if not (isinstance(y_dist.mean, LinearCombination) and list(y_dist.mean.form_dict) == [beta]
+            and y_dist.mean.form_dict[beta] == g.matrix):
+        return None
+    if lik:
+        # y ~ N(B beta, (tau P)^-1) with P the identity (the kernel's residual
+        # quadratic is unweighted) and a conjugate Gamma prior on tau
+        if y_dist.truncated or y_dist.n_active is not None:
+            return None
+        sp_y = _scaled_precision(y_dist)
+        if sp_y is None or sp_y[1] != tau_name:
+            return None
+        pen = mcmc.data.get(sp_y[0])
+        if not isinstance(pen, st.Diagonal) or not bool(torch.all(pen.diag_ == 1.0)):
+            return None
+        hyp_tau = _gamma_hypers(mcmc, tau_name)
+        tau0 = _initial_scalar(mcmc, tau_name)
+        y_data = _column(mcmc.data.get(y_name))
+        if hyp_tau is None or tau0 is None or y_data is None:
+            return None  # replicate response columns need the generic driver
+    k_dist = mcmc.model[count]
+    if not (isinstance(k_dist, Poisson) and isinstance(k_dist.rate, Identity)):
+        return None
+    rho = _scalar(mcmc, k_dist.rate.form)
+    th_dist = mcmc.model[theta]
+    if not isinstance(th_dist, Uniform) or th_dist.n_active != count:
+        return None
+    if len(th_dist.domain_response_lower) != 1 or len(th_dist.domain_response_upper) != 1:
+        return None
+    th_lims = (th_dist.domain_response_lower[0], th_dist.domain_response_upper[0])
+    # theta's random walk must be truncated at the prior's domain
+    if rw_th.domain_limits is None or tuple(np.asarray(rw_th.domain_limits).reshape(-1)) != th_lims:
+        return None
+    if rw_om.domain_limits is None or np.asarray(rw_om.domain_limits).size != 2:
+        return None
+    om_lims = tuple(float(v) for v in np.asarray(rw_om.domain_limits).reshape(-1))
+    om_dist = mcmc.model[omega]
+    if not isinstance(om_dist, Gamma) or om_dist.n_active != count:
+        return None
+    hyp_om = _gamma_hypers(mcmc, omega)
+    b_dist = mcmc.model[beta]
+    if not isinstance(b_dist, Normal) or b_dist.truncated or b_dist.n_active != count:
+        return None
+    # a single-component mixture mean and precision: the constants mu_b, tau_b
+    if not (isinstance(b_dist.mean, MixtureParameterVector) and isinstance(b_dist.precision, MixtureParameterMatrix)
+            and b_dist.mean.allocation == b_dist.precision.allocation):
+        return None
+    alloc = mcmc.data.get(b_dist.mean.allocation)
+    if alloc is None or isinstance(alloc, st.STRUCTURED_TYPES) or bool(torch.any(alloc != 0)):
+        return None
+    mu_b = _scalar(mcmc, b_dist.mean.param)
+    tau_b = _scalar(mcmc, b_dist.precision.param)
+    X = mcmc.data.get(g.x)
+    init = mcmc.initial_chain_state
+    if any(v is None for v in (rho, hyp_om, mu_b, tau_b, X)) or rho <= 0.0:
+        return None
+    if any(init.get(name) is None for name in (beta, theta, omega, count)):
+        return None
+    from openmcmc_tpu_torch.fused.rj import MAX_N_MAX, run_fused_rj
+
+    n_max = int(rj.n_max)
+    if n_max > MAX_N_MAX or init[theta].numel() != n_max:
+        return None
+    # the kernel stores the count and log_post, and the padded beta/theta/omega
+    # draws when asked; B is derived state it never stores
+    storable = {count, beta, theta, omega} | ({tau_name} if lik else set())
+    if not set(mcmc.store_names) <= storable:
+        return None
+    # a fitted value read from B needs the generic driver: the data's B is the
+    # stale initial basis
+    if mcmc.model.response is not None:
+        for resp, pname in mcmc.model.response.items():
+            if g.matrix in getattr(mcmc.model[resp], pname).get_param_list():
+                return None
+    stream = bool(set(mcmc.store_names) & {beta, theta, omega})
+    if stream and _jax_rj_stream_bytes(mcmc.n_chains, mcmc.n_iter, mcmc.n_thin, lik, n_max) > RJ_STREAM_CAP_BYTES:
+        return None
+    host = {name: _host_array(init[name]).astype(np.float64) for name in (beta, theta, omega)}
+    k0 = float(_host_array(init[count]).reshape(()))
+    X_host = _host_array(X).astype(np.float64).reshape(-1)
+    step = {s.param: float(s.step_size.reshape(())) for s in (mala, rw_th, rw_om)}
+
+    def run(seed, bit_source=None):
+        nc = mcmc.n_chains
+        extra = {}
+        if lik:
+            extra = dict(y=np.asarray(y_data, np.float64).reshape(-1), a_tau=hyp_tau[0], b_tau=hyp_tau[1], tau0=tau0)
+        out = run_fused_rj(
+            seed, X_host, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=nc, n_max=n_max, beta0=host[beta],
+            theta0=host[theta], omega0=host[omega], k0=k0, rho=rho, mu_beta=mu_b, tau_beta=tau_b, a_omega=hyp_om[0],
+            b_omega=hyp_om[1], theta_limits=th_lims, omega_rw_limits=om_lims,
+            match_limits=(float(mp["limits"][0]), float(mp["limits"][1])), match_scale=float(mp["scale"]),
+            step_mmala=step[beta], step_theta=step[theta], step_omega=step[omega], stream_params=stream,
+            n_thin=_kernel_thin(mcmc), device=mcmc.device, bit_source=bit_source, **extra,
+        )
+        store = {count: out["n_basis"][..., None, None].to(torch.int32)}
+        if lik:
+            store[tau_name] = out["tau"][..., None, None]
+        if stream:
+            # the state's shapes: beta (n_max, 1), theta and omega (1, n_max)
+            store[beta] = out["beta"][..., None]
+            store[theta] = out["theta"][:, :, None, :]
+            store[omega] = out["omega"][:, :, None, :]
+        dev = out["log_post"].device
+        n_prop = torch.full((nc,), mcmc.n_burn + mcmc.n_iter * _kernel_thin(mcmc), dtype=torch.int32, device=dev)
+        stats = {
+            beta: {"accept": out["accept_mmala"].to(torch.int32), "proposal": n_prop},
+            theta: {"accept": out["accept_theta"].to(torch.int32), "proposal": out["proposal_theta"].to(torch.int32)},
+            omega: {"accept": out["accept_omega"].to(torch.int32), "proposal": out["proposal_omega"].to(torch.int32)},
+            count: {"accept": out["accept_rj"].to(torch.int32), "proposal": n_prop.clone()},
+        }
+        if lik:
+            stats[tau_name] = {}  # a conjugate sampler carries no statistics
+        return store, out["log_post"], stats
+
+    run.engine_name = "fused_rj"
+    run.store_keys = frozenset({count} | ({tau_name} if lik else set()) | ({beta, theta, omega} if stream else set()))
     return run
 
 

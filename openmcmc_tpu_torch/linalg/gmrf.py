@@ -150,11 +150,11 @@ def _standardize_bounds(mean, scale, lower, upper):
     return (lower - mean) / scale, (upper - mean) / scale
 
 
-def truncated_normal_rv(key: Key, mean, scale, lower=None, upper=None, shape=None) -> torch.Tensor:
+def truncated_normal_rv(key: Key, mean, scale, lower=None, upper=None, shape=None, u=None) -> torch.Tensor:
     """Truncated-normal draws on [lower, upper], elementwise broadcast (inverse CDF
-    with ``torch.erf`` and the Giles inverse erf, uniforms from the key's
-    generator). The draw is clipped into the box in the original coordinates
-    too, so that rounding never puts it 1 ulp outside."""
+    with ``torch.erf`` and the Giles inverse erf, uniforms ``u`` of ``shape``, from
+    the key's generator when not given). The draw is clipped into the box in the
+    original coordinates too, so that rounding never puts it 1 ulp outside."""
     mean = torch.as_tensor(mean)
     if not mean.dtype.is_floating_point:
         mean = mean.to(torch.float32)
@@ -168,7 +168,8 @@ def truncated_normal_rv(key: Key, mean, scale, lower=None, upper=None, shape=Non
     a, b = a.expand(shape), b.expand(shape)
     ea = torch.erf(a / _SQRT2)
     eb = torch.erf(b / _SQRT2)
-    u = torch.rand(tuple(shape), generator=key.generator, **f)
+    if u is None:
+        u = torch.rand(tuple(shape), generator=key.generator, **f)
     t = ea + u * (eb - ea)
     z = _SQRT2 * fast_erfinv(torch.clamp(t, -1.0 + 1e-7, 1.0 - 1e-7))
     z = torch.clamp(z, a, b)

@@ -17,14 +17,17 @@ match. The fused engines so far: ``fused_smoother_spectral`` (kernel K1),
 for linear regression ``fused_linreg`` (p <= 16, kernel K6) and
 ``fused_linreg_spectral`` (p <= 256, kernel K5), and for the Metropolis family
 ``fused_random_walk`` (kernel K7), ``fused_mmala`` (p <= 16, kernel K8) and
-``fused_mmala_spectral`` (p <= 256, kernel K9), and for the Gaussian mixture
+``fused_mmala_spectral`` (p <= 256, kernel K9), for the Gaussian mixture
 ``fused_mixture`` and ``fused_mixture_conjugate`` (kernel K10), which store the
-allocation Z as int32 (chains, n_iter, n, 1) like the generic driver.
+allocation Z as int32 (chains, n_iter, n, 1) like the generic driver, and for
+the reversible-jump knot-basis regression ``fused_rj`` (kernel K11), which
+stores the int32 count as (chains, n_iter, 1, 1) like the generic driver.
 
 Randomness: the generic driver draws from one ``torch.Generator`` on the device,
 seeded from ``seed`` (torch draws: Gamma variates, prior init, non-tridiagonal
 Normal noise, truncated-normal uniforms, Metropolis proposals and accept
-uniforms, mixture allocations), and K3 from Philox keyed by
+uniforms, mixture allocations, reversible-jump move types and deletion
+indices), and K3 from Philox keyed by
 ``seed & 0x7FFFFFFF`` with a call
 counter per (sweep, sampler). The streams differ from the JAX package's
 threefry ones; its draws agree in distribution.
@@ -107,8 +110,9 @@ class MCMCResult:
     store[name] has shape (n_chains, n_iter) + state_shape; log_post is
     (n_chains, n_iter); final_state[name] is each sampled entry's last draw,
     (n_chains,) + state_shape; stats[param] holds each sampler's per-chain
-    statistics (a Metropolis sampler's accept and proposal counts over burn-in
-    and sampling, its adapted log_step)."""
+    statistics (a Metropolis or reversible-jump sampler's accept and proposal
+    counts over burn-in and sampling, its adapted log_step; a conjugate
+    sampler's are empty)."""
 
     store: Dict[str, torch.Tensor]
     log_post: torch.Tensor
@@ -198,10 +202,11 @@ class MCMC:
         sweep modifies (always so for a single sampler). A per-run decision: the
         samplers key off the ``logp`` entry the driver seeds in their stats."""
         from openmcmc_tpu_torch.samplers.metropolis import ManifoldMALA, RandomWalk, RandomWalkLoop
+        from openmcmc_tpu_torch.samplers.reversible_jump import ReversibleJump
 
         carried = set()
         for s in self.samplers:
-            if not isinstance(s, (RandomWalk, ManifoldMALA)) or isinstance(s, RandomWalkLoop):
+            if not isinstance(s, (RandomWalk, ManifoldMALA, ReversibleJump)) or isinstance(s, RandomWalkLoop):
                 continue
             deps = set()
             for dist in s.model.values():

@@ -5,8 +5,8 @@ Ported so far: :class:`Identity` and :class:`ScaledMatrix` (the smoother's
 forms), :class:`LinearCombination` (linear regression), with the gradient lists
 the conjugate samplers read and ``LinearCombination.grad``, and the mixture forms
 :class:`MixtureParameterVector` and :class:`MixtureParameterMatrix`.
-``LinearCombinationWithTransform`` comes with reversible jump (ROADMAP.md queue
-1: reversible jump).
+``LinearCombinationWithTransform`` comes with the examples (ROADMAP.md queue 1:
+examples and entry): only the Poisson-GMRF example uses it.
 
 State convention as in the JAX package: state[name] has shape (p, n), p the
 dimension and n the replicates; per-chain entries carry leading chain axes,

@@ -1,6 +1,6 @@
 """Samplers. Ported so far: the conjugate NormalNormal, NormalGamma and
-MixtureAllocation, and the Metropolis family (RandomWalk, RandomWalkLoop,
-ManifoldMALA)."""
+MixtureAllocation, the Metropolis family (RandomWalk, RandomWalkLoop,
+ManifoldMALA) and ReversibleJump."""
 
 from openmcmc_tpu_torch.samplers.base import Sampler
 from openmcmc_tpu_torch.samplers.conjugate import MixtureAllocation, NormalGamma, NormalNormal
@@ -11,6 +11,7 @@ from openmcmc_tpu_torch.samplers.metropolis import (
     RandomWalkLoop,
     acceptance_rate,
 )
+from openmcmc_tpu_torch.samplers.reversible_jump import ReversibleJump
 
 __all__ = ["Sampler", "NormalNormal", "NormalGamma", "MixtureAllocation", "MetropolisHastings", "RandomWalk", "RandomWalkLoop",
-           "ManifoldMALA", "acceptance_rate"]
+           "ManifoldMALA", "ReversibleJump", "acceptance_rate"]

@@ -11,9 +11,12 @@ current-state log-density ``logp`` when the driver seeds it (see
 (the JAX package splits threefry keys): proposal noise, truncated-draw uniforms
 and the accept uniforms, in that order. Nothing is read back from the device.
 
-Not ported yet: ``active_count`` (the padded reversible-jump convention) and
-``NullDistribution``, which ``RandomWalkLoop``'s vectorized test treats as
-absent (ROADMAP.md queue 1: reversible jump).
+``active_count`` names an integer count entry (the padded reversible-jump
+convention, :mod:`openmcmc_tpu_torch.padding`): entries of the parameter at or
+past the count are frozen. ``RandomWalkLoop`` then proposes and counts only the
+active columns, and ``ManifoldMALA`` keeps the inactive rows of its proposal at
+their current values. A ``NullDistribution`` contributes zero to every density,
+so it never couples the columns of ``RandomWalkLoop``'s vectorized step.
 """
 
 from __future__ import annotations
@@ -26,9 +29,8 @@ import torch
 from openmcmc_tpu_torch.linalg import gmrf
 from openmcmc_tpu_torch.linalg import structured as st
 from openmcmc_tpu_torch.model import Model
+from openmcmc_tpu_torch.padding import active_mask
 from openmcmc_tpu_torch.samplers.base import Sampler
-
-_RJ_ITEM = "ROADMAP.md queue 1: reversible jump"
 
 
 def acceptance_rate(stats: dict) -> torch.Tensor:
@@ -60,11 +62,9 @@ class MetropolisHastings(Sampler):
         self._configure(step, active_count, updated_names, adapt_step, target_accept, adapt_rate)
 
     def _configure(self, step, active_count, updated_names, adapt_step, target_accept, adapt_rate):
-        if active_count is not None:
-            raise NotImplementedError(f"active_count is not ported yet ({_RJ_ITEM})")
         # step size kept under step_size (.step is the update method), at least 2-D
         self.step_size = torch.as_tensor(np.atleast_2d(np.asarray(step, dtype=np.float32)))
-        self.active_count = None
+        self.active_count = active_count
         self.updated_names = updated_names if updated_names is not None else [self.param]
         # Robbins-Monro adaptation of log(step) toward the target acceptance rate
         # during burn-in, per chain; frozen once sampling starts
@@ -109,9 +109,11 @@ class MetropolisHastings(Sampler):
             total = total + dist.log_p(state)
         return total
 
-    def _accept_reject(self, key, state, updates, logp_pr_g_cr, logp_cr_g_pr, stats, logp_cs=None):
+    def _accept_reject(self, key, state, updates, logp_pr_g_cr, logp_cr_g_pr, stats, force_reject=None,
+                       logp_cs=None):
         """Branchless accept/reject of all chains; ``logp_cs`` is the carried
-        current-state log-density when the driver seeded one."""
+        current-state log-density when the driver seeded one, and
+        ``force_reject`` (per chain) turns an accept into a reject."""
         prop_state = dict(state)
         prop_state.update(updates)
         if logp_cs is None:
@@ -120,6 +122,8 @@ class MetropolisHastings(Sampler):
         log_accept = logp_pr + logp_cr_g_pr - (logp_cs + logp_pr_g_cr)
         u = torch.rand(log_accept.shape, generator=key.generator, dtype=log_accept.dtype, device=log_accept.device)
         accept = torch.log(u) < log_accept
+        if force_reject is not None:
+            accept = accept & ~force_reject
         new_state = dict(state)
         for name, proposed in updates.items():
             new_state[name] = torch.where(_expand_as(accept, proposed), proposed, state[name])
@@ -170,20 +174,27 @@ class RandomWalk(MetropolisHastings):
         ub = torch.as_tensor(self.domain_limits[:, 1], dtype=torch.float32).reshape(-1, 1)
         return self._device_copy("lb", lb, device), self._device_copy("ub", ub, device)
 
-    def _draw(self, key, mu, step):
+    def _raw(self, key, value):
+        """The variates a proposal for ``value`` turns into a draw: standard
+        normals, or the truncated walk's inverse-CDF uniforms."""
+        draw = torch.randn if self.domain_limits is None else torch.rand
+        return draw(value.shape, generator=key.generator, dtype=value.dtype, device=value.device)
+
+    def _draw(self, key, mu, step, raw=None):
         """Proposal z around mu with its forward and reverse log-densities per
-        element (zeros for the symmetric Gaussian walk)."""
+        element (zeros for the symmetric Gaussian walk); ``raw`` is the
+        :meth:`_raw` variates when drawn beforehand."""
+        if raw is None:
+            raw = self._raw(key, mu)
         if self.domain_limits is None:
-            noise = torch.randn(mu.shape, generator=key.generator, dtype=mu.dtype, device=mu.device)
-            z = mu + step * noise
-            return z, None, None
+            return mu + step * raw, None, None
         lb, ub = self._bounds(mu.device)
-        z = gmrf.truncated_normal_rv(key, mu, step, lower=lb, upper=ub, shape=mu.shape)
+        z = gmrf.truncated_normal_rv(key, mu, step, lower=lb, upper=ub, shape=mu.shape, u=raw)
         fwd = gmrf.truncated_normal_log_pdf(z, mu, step, lower=lb, upper=ub)
         rev = gmrf.truncated_normal_log_pdf(mu, z, step, lower=lb, upper=ub)
         return z, fwd, rev
 
-    def proposal(self, key, state: dict, param_index=None, step=None):
+    def proposal(self, key, state: dict, param_index=None, step=None, raw=None):
         value = state[self.param]
         step_size = self._step_value({}, value.device) if step is None else step
         if param_index is None:
@@ -191,7 +202,7 @@ class RandomWalk(MetropolisHastings):
         else:
             mu = value[..., :, param_index:param_index + 1]
             step = step_size if step_size.shape[-1] == 1 else step_size[..., :, param_index:param_index + 1]
-        z, fwd, rev = self._draw(key, mu, step)
+        z, fwd, rev = self._draw(key, mu, step, raw)
         batch = value.shape[:-2]
         zero = torch.zeros(batch, dtype=value.dtype, device=value.device)
         logp_pr_g_cr = zero if fwd is None else torch.sum(fwd, dim=(-2, -1))
@@ -221,7 +232,8 @@ class RandomWalkLoop(RandomWalk):
     per-column accept decisions is the same composite kernel; dependent entries
     are then refreshed once after the accept by ``vector_state_update_function
     (key, updates, state) -> updates``. Otherwise the columns run in order, a
-    Python loop in place of the JAX package's ``lax.scan``."""
+    Python loop in place of the JAX package's ``lax.scan``, with every column's
+    proposal variates drawn before the loop."""
 
     default_target_accept = 0.44  # 1-D optimal acceptance
 
@@ -239,11 +251,15 @@ class RandomWalkLoop(RandomWalk):
 
     def _vectorized_ok(self) -> bool:
         """True when the one-at-a-time sweep provably equals one vectorized step."""
+        from openmcmc_tpu_torch.distributions.location_scale import NullDistribution
+
         cached = getattr(self, "_vec_ok", None)
         if cached is not None:
             return cached
         ok = not (self.state_update_function is not None and self.vector_state_update_function is None)
         for d in self._loop_distributions():
+            if isinstance(d, NullDistribution):
+                continue  # identically zero: cannot couple columns
             if d.response == self.param and getattr(d, "column_factorized", False) and self.param not in d._dist_params:
                 continue  # own-column prior term
             ok = False
@@ -258,10 +274,19 @@ class RandomWalkLoop(RandomWalk):
 
     def _loop_log_p_columns(self, state: dict) -> torch.Tensor:
         """Per-column restricted log-density (..., n), valid when _vectorized_ok."""
+        from openmcmc_tpu_torch.distributions.location_scale import NullDistribution
+
         total = 0.0
         for dist in self._loop_distributions():
-            total = total + dist.log_p(state, by_observation=True)
+            if not isinstance(dist, NullDistribution):
+                total = total + dist.log_p(state, by_observation=True)
         return total
+
+    def _active_columns(self, state: dict, n: int):
+        """(..., n) bool mask of the columns below the active count, or None."""
+        if self.active_count is None:
+            return None
+        return active_mask(state[self.active_count], n)
 
     def _step_vectorized(self, key, state: dict, stats: dict, adapt: bool) -> Tuple[dict, dict]:
         value = state[self.param]  # (..., p, n)
@@ -271,8 +296,12 @@ class RandomWalkLoop(RandomWalk):
         prop_state = dict(state)
         prop_state[self.param] = z
         log_accept = self._loop_log_p_columns(prop_state) + lr - (self._loop_log_p_columns(state) + lf)
+        n = value.shape[-1]
         u = torch.rand(log_accept.shape, generator=key.generator, dtype=value.dtype, device=value.device)
         accept = torch.log(u) < log_accept
+        active = self._active_columns(state, n)
+        if active is not None:
+            accept = accept & active
         updates = {self.param: torch.where(accept[..., None, :], z, value)}
         if self.vector_state_update_function is not None:
             updates = self.vector_state_update_function(key, updates, state)
@@ -280,11 +309,15 @@ class RandomWalkLoop(RandomWalk):
         new_state.update(updates)
         new_stats = dict(stats)
         new_stats["accept"] = stats["accept"] + torch.sum(accept, dim=-1).to(torch.int32)
-        new_stats["proposal"] = stats["proposal"] + value.shape[-1]
+        n_prop = n if active is None else torch.sum(active, dim=-1).to(torch.int32)
+        new_stats["proposal"] = stats["proposal"] + n_prop
         if self.adapt_step and adapt:
-            # one nudge per column, summed: the sequential path's total per sweep
+            # one nudge per active column, summed: the sequential path's total per sweep
             alpha = torch.exp(torch.clamp(log_accept, max=0.0))
-            total = torch.sum(alpha - self.target_accept, dim=-1)
+            nudge = alpha - self.target_accept
+            if active is not None:
+                nudge = torch.where(active, nudge, 0.0)
+            total = torch.sum(nudge, dim=-1)
             new_stats["log_step"] = stats["log_step"] + _expand_as(self.adapt_rate * total, stats["log_step"])
         return new_state, new_stats
 
@@ -295,25 +328,36 @@ class RandomWalkLoop(RandomWalk):
         carried = list(dict.fromkeys(self.updated_names))  # param + hook-updated entries
         values = {name: state[name] for name in carried}
         logp_cur = self._loop_log_p(state)
+        active_cols = self._active_columns(state, n)
         sts = stats
+        # every column's variates in one draw; each column's proposal applies the
+        # step as adapted by the columns before it
+        raw = self._raw(key, state[self.param])
         for idx in range(n):
             cur_state = dict(state)
             cur_state.update(values)
             device = cur_state[self.param].device
-            updates, lf, lr = self.proposal(key, cur_state, param_index=idx, step=self._step_value(sts, device))
+            updates, lf, lr = self.proposal(key, cur_state, param_index=idx, step=self._step_value(sts, device),
+                                            raw=raw[..., :, idx:idx + 1])
             prop_state = dict(cur_state)
             prop_state.update(updates)
             logp_pr = self._loop_log_p(prop_state)
             log_accept = logp_pr + lr - (logp_cur + lf)
             u = torch.rand(log_accept.shape, generator=key.generator, dtype=log_accept.dtype, device=device)
             accept = torch.log(u) < log_accept
+            active = None if active_cols is None else active_cols[..., idx]
+            if active is not None:
+                accept = accept & active
             values = {name: torch.where(_expand_as(accept, cur_state[name]), updates.get(name, cur_state[name]),
                                         cur_state[name]) for name in carried}
             logp_cur = torch.where(accept, logp_pr, logp_cur)
+            old = sts
             sts = dict(sts)
             sts["accept"] = sts["accept"] + accept.to(torch.int32)
-            sts["proposal"] = sts["proposal"] + 1
+            sts["proposal"] = sts["proposal"] + (1 if active is None else active.to(torch.int32))
             sts = self._adapt(sts, log_accept, adapt)
+            if active is not None and "log_step" in sts:
+                sts["log_step"] = torch.where(_expand_as(active, old["log_step"]), sts["log_step"], old["log_step"])
         new_state = dict(state)
         new_state.update(values)
         return new_state, sts
@@ -336,6 +380,12 @@ class ManifoldMALA(MetropolisHastings):
         d = x.shape[-2] * x.shape[-1]
         flat_mu = mu_cr.reshape(mu_cr.shape[:-2] + (d, 1))
         proposed = gmrf.sample_normal(key, flat_mu, L=chol_cr).reshape(x.shape)
+        if self.active_count is not None:
+            # padded reversible-jump convention: the rows past the count stay (their
+            # Hessian rows are the identity and their gradient zero, so their
+            # forward and reverse proposal terms cancel in the accept ratio)
+            mask = active_mask(state[self.active_count], x.shape[-2], dtype=proposed.dtype)[..., None]
+            proposed = mask * proposed + (1.0 - mask) * x
         updates = {self.param: proposed}
         prop_state = dict(state)
         prop_state.update(updates)

@@ -421,3 +421,109 @@ def test_mixture_kernel_matches_plain(dev, k, n, conjugate, box):
     assert torch.all(torch.abs(got["log_post"] - want["log_post"])
                      <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
     assert torch.equal(got["accept_total"], want["accept_total"])
+
+
+def _rj_inputs(dev, lik, p, n_data, n_chains, warm, seed=0):
+    """K11's data, initial rows and a prior-recovery or regression
+    configuration: per-chain warm rows (random counts, padded entries zero,
+    counters already running) or the broadcast start of 3 knots."""
+    from openmcmc_tpu_torch.fused import rj
+
+    rng = np.random.default_rng(p * 1000 + n_data)
+    X = np.sort(rng.uniform(-10, 10, n_data))
+    parts = [X] + ([np.sin(X) + 0.1 * rng.normal(size=n_data)] if lik else [])
+    data = torch.as_tensor(np.concatenate(parts), dtype=torch.float32, device=dev)
+    if warm:
+        k = rng.integers(1, p + 1, n_chains)
+        active = np.arange(p)[None, :] < k[:, None]
+        rows = rj.init_rows(n_chains, p, rng.normal(size=(n_chains, p)) * active,
+                            rng.uniform(-10, 10, (n_chains, p)) * active, rng.uniform(0.5, 2.0, (n_chains, p)) * active,
+                            k.astype(np.float32), rng.uniform(0.5, 5.0, n_chains) if lik else None,
+                            np.tile([3.0, 7.0, 5.0, 1.0, 9.0, 9.0], (n_chains, 1)), device=dev)
+    else:
+        k0 = min(3, p)
+        th, om, be = np.zeros(p), np.zeros(p), np.zeros(p)
+        th[:k0], om[:k0], be[:k0] = rng.uniform(-10, 10, k0), 1.0, 1.0
+        rows = rj.init_rows(n_chains, p, be, th, om, float(k0), 1.0 if lik else None, device=dev)
+    return data, rows
+
+
+@pytest.mark.parametrize("lik,p,n_data,n_chains,n_thin,warm", [
+    (False, 2, 7, 37, 1, False), (False, 8, 50, 1000, 2, True), (False, 20, 200, 37, 1, False),
+    (False, 32, 50, 37, 2, True), (True, 2, 50, 1000, 1, True), (True, 8, 7, 37, 2, False),
+    (True, 20, 50, 37, 1, True), (True, 32, 200, 37, 2, False),
+], ids=["null_p2_n7", "null_p8_n50_warm", "null_p20_n200", "null_p32_n50_warm", "lik_p2_n50_warm", "lik_p8_n7",
+        "lik_p20_n50_warm", "lik_p32_n200"])
+def test_rj_kernel_matches_plain(dev, lik, p, n_data, n_chains, n_thin, warm):
+    """K11 against its plain version on the same Philox bits, parameters
+    streamed: both variants, n_max 2 to 32 (a full warp), n_data 7 to 200, 37
+    and 1000 chains, n_thin 1 and 2, broadcast and per-chain warm initial rows,
+    n_burn 2, n_keep 3. The kernel adds every sum in the plain version's order
+    and rounds like it (--fmad=false), so every stored row is equal: the counts,
+    counters and accepts, and the values bit for bit."""
+    from openmcmc_tpu_torch.fused import rj
+
+    data, rows = _rj_inputs(dev, lik, p, n_data, n_chains, warm)
+    config = rj.make_config(p, n_data, rho=min(8.0, p / 2 + 0.5), likelihood=lik, a_tau=2.0, b_tau=0.1,
+                            stream=True, n_burn=2, n_keep=3, n_thin=n_thin, seed=11, n_chains=n_chains)
+    before = rj.rj_sweeps_kernel.launches
+    got = rj.rj_sweeps(data, rows, n_chains, config=config)
+    want = rj.rj_sweeps_plain(data, rows, n_chains, config=config)
+    torch.cuda.synchronize()
+    assert rj.rj_sweeps_kernel.launches == before + 1
+    assert tuple(got.shape) == (n_chains, 3, 8 + int(lik) + 3 * p) and bool(torch.isfinite(got).all())
+    assert torch.equal(got[:, :, :8], want[:, :, :8])  # k, log_post, the six counters
+    assert torch.equal(got, want)
+    k = got[:, :, 0]
+    assert float(k.min()) >= 1.0 and float(k.max()) <= p
+
+
+def test_rj_auto_run_launches_k11_once(dev):
+    """MCMC.run(engine="auto") on the card runs the regression through one K11
+    launch, the count stored as int32 on the card."""
+    from openmcmc_tpu_torch import MCMC, Model
+    from openmcmc_tpu_torch.basis import GaussianKernelBasis
+    from openmcmc_tpu_torch.distributions import Gamma, Normal, Poisson, Uniform
+    from openmcmc_tpu_torch.fused import rj
+    from openmcmc_tpu_torch.linalg import structured as st
+    from openmcmc_tpu_torch.parameters import LinearCombination, MixtureParameterMatrix, MixtureParameterVector, ScaledMatrix
+    from openmcmc_tpu_torch.samplers import ManifoldMALA, NormalGamma, RandomWalkLoop, ReversibleJump
+
+    g, n_max, rng = GaussianKernelBasis(), 8, np.random.default_rng(0)
+    X = np.sort(rng.uniform(-10, 10, (30, 1)), axis=0)
+    theta = np.zeros((1, n_max)); theta[0, :3] = [-5.0, 0.0, 5.0]
+    omega = np.zeros((1, n_max)); omega[0, :3] = 1.0
+    state = {"X": X, "y": np.sin(X), "n_basis": np.array([[3]], np.int32), "theta": theta, "omega": omega,
+             "beta": np.where(np.arange(n_max)[:, None] < 3, 1.0, 0.0), "alloc_beta": np.zeros((n_max, 1), np.int32),
+             "mu_beta": 0.0, "tau_beta": 0.25, "rho": 3.0, "a_omega": 3.0, "b_omega": 2.0,
+             "P": st.Diagonal(torch.ones(30)), "tau_y": 1.0, "a_tau": 2.0, "b_tau": 0.1,
+             "B": g.make(X, theta, omega, 3).numpy()}
+    mdl = Model([
+        Normal("y", mean=LinearCombination(form={"beta": "B"}), precision=ScaledMatrix("P", "tau_y")),
+        Normal("beta", mean=MixtureParameterVector("mu_beta", "alloc_beta"),
+               precision=MixtureParameterMatrix("tau_beta", "alloc_beta"), n_active="n_basis"),
+        Poisson("n_basis", rate="rho"),
+        Uniform("theta", domain_response_lower=-10.0, domain_response_upper=10.0, n_active="n_basis"),
+        Gamma("omega", shape="a_omega", rate="b_omega", n_active="n_basis"),
+        Gamma("tau_y", shape="a_tau", rate="b_tau"),
+    ])
+    walk = dict(state_update_function=g.move, vector_state_update_function=g.move_vec, active_count="n_basis")
+    samplers = [
+        ManifoldMALA("beta", mdl, step=0.5, active_count="n_basis"),
+        RandomWalkLoop("theta", mdl, step=0.1, domain_limits=np.asarray([[-10.0, 10.0]]), updated_names=["theta", "B"],
+                       **walk),
+        RandomWalkLoop("omega", mdl, step=0.1, domain_limits=np.asarray([[0.5, 2.0]]), updated_names=["omega", "B"],
+                       **walk),
+        ReversibleJump("n_basis", mdl, associated_params=["theta", "omega"], n_max=n_max, state_birth_function=g.birth,
+                       state_death_function=g.death,
+                       matching_params={"variable": "beta", "matrix": "B", "scale": 1.0, "limits": [-10.0, 10.0]}),
+        NormalGamma("tau_y", mdl),
+    ]
+    m = MCMC(state, samplers, mdl, n_burn=20, n_iter=50, n_chains=256, seed=1, store_names=["n_basis", "tau_y"],
+             device=dev)
+    before = rj.rj_sweeps_kernel.launches
+    res = m.run(engine="auto")
+    torch.cuda.synchronize()
+    assert res.engine == "fused_rj" and rj.rj_sweeps_kernel.launches == before + 1
+    assert res.store["n_basis"].dtype == torch.int32 and res.store["n_basis"].device.type == "cuda"
+    assert res.store["tau_y"].shape == (256, 50, 1, 1) and bool(torch.all(res.store["tau_y"] > 0.0))

@@ -106,7 +106,7 @@ def test_store_contract_and_log_post_match_jax():
     data = {k: v for k, v in build("openmcmc_tpu", state, 2, None, None).data.items()}
     draws = {name: jnp.asarray(got.store[name].numpy().reshape((40,) + tuple(got.store[name].shape[2:])))
              for name in ("b", "lambda", "tau")}
-    ref = jax.vmap(lambda d: model.log_p({**data, **d}))(draws)
+    ref = jax.jit(jax.vmap(lambda d: model.log_p({**data, **d})))(draws)
     np.testing.assert_allclose(got.log_post.numpy().reshape(-1), np.asarray(ref), rtol=1e-5)
 
 

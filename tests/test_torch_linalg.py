@@ -37,21 +37,28 @@ def test_precision_irregular_matches_jax():
 
 @pytest.mark.parametrize("kind", [0, 1, 2], ids=["banded", "diagonal", "dense"])
 def test_structured_ops_match_jax(kind):
+    import jax
+
     _, pairs = _pairs()
     j, t = pairs[kind]
     x = np.random.default_rng(1).normal(size=(9, 2)).astype(np.float32)
     assert tst.dim(t) == jst.dim(j) == 9
-    np.testing.assert_allclose(tst.to_dense(t).numpy(), np.asarray(jst.to_dense(j)), rtol=1e-6)
-    np.testing.assert_allclose(tst.diag(t).numpy(), np.asarray(jst.diag(j)), rtol=1e-6)
-    np.testing.assert_allclose(tst.matvec(t, torch.from_numpy(x)).numpy(), np.asarray(jst.matvec(j, jnp.asarray(x))),
-                               rtol=1e-5, atol=1e-5)
+    if kind == 0:  # the RW1 prior is intrinsic: ridge it for the log-determinant, as bench.py does
+        j_det = jst.Banded(j.bands.at[0, 0].add(1e-3))
+        t_det = tst.Banded(torch.from_numpy(np.array(j_det.bands)))
+    else:
+        j_det, t_det = j, t
+    # the JAX references compiled as one program (eagerly each operation would compile on its own)
+    ref = jax.jit(lambda v: dict(dense=jst.to_dense(j), diag=jst.diag(j), mv=jst.matvec(j, v),
+                                 mv_scaled=jst.matvec(jst.scale(2.5, j), v[:, 0]),
+                                 logdet=jst.chol_log_det(jst.cholesky(j_det))))(jnp.asarray(x))
+    np.testing.assert_allclose(tst.to_dense(t).numpy(), np.asarray(ref["dense"]), rtol=1e-6)
+    np.testing.assert_allclose(tst.diag(t).numpy(), np.asarray(ref["diag"]), rtol=1e-6)
+    np.testing.assert_allclose(tst.matvec(t, torch.from_numpy(x)).numpy(), np.asarray(ref["mv"]), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tst.matvec(tst.scale(2.5, t), torch.from_numpy(x[:, 0])).numpy(),
-                               np.asarray(jst.matvec(jst.scale(2.5, j), jnp.asarray(x[:, 0]))), rtol=1e-5, atol=1e-5)
-    if kind == 0:  # the RW1 prior is intrinsic: ridge it, as bench.py does
-        j = jst.Banded(j.bands.at[0, 0].add(1e-3))
-        t = tst.Banded(torch.from_numpy(np.array(j.bands)))
-    want = float(jst.chol_log_det(jst.cholesky(j)))
-    got = float(tst.chol_log_det(tst.cholesky(t)))
+                               np.asarray(ref["mv_scaled"]), rtol=1e-5, atol=1e-5)
+    want = float(ref["logdet"])
+    got = float(tst.chol_log_det(tst.cholesky(t_det)))
     assert abs(got - want) <= 1e-4 * max(1.0, abs(want)), (got, want)
 
 
@@ -123,7 +130,9 @@ def test_banded_factor_and_solves_match_jax_x64(bw, batched):
                 lp_sum=jgmrf.mvn_log_pdf(r, jnp.asarray(mu), Q=J(bd)),
             )
 
-        want = {k: np.asarray(v) for k, v in _jax_batched(jax_all, batched)(jnp.asarray(bands), jnp.asarray(rhs)).items()}
+        # compiled as one program: eagerly, every operation of the scans would compile on its own
+        want = {k: np.asarray(v)
+                for k, v in jax.jit(_jax_batched(jax_all, batched))(jnp.asarray(bands), jnp.asarray(rhs)).items()}
     chol = tst.cholesky(T)
     got = dict(
         chol=chol.bands, lower=tst.solve_lower(chol, tr), upper=tst.solve_upper_t(chol, tr),
@@ -158,7 +167,7 @@ def test_dense_and_diagonal_solves_match_jax_x64(kind):
             return dict(cho=jst.cho_solve(chol, r), lt=jst.chol_matvec_t(chol, r), logdet=jst.chol_log_det(chol),
                         lp=jgmrf.mvn_log_pdf(r, jnp.asarray(mu), Q=jcls(m), by_observation=True))
 
-        want = {k: np.asarray(v) for k, v in jax.vmap(jax_all)(jnp.asarray(mats), jnp.asarray(rhs)).items()}
+        want = {k: np.asarray(v) for k, v in jax.jit(jax.vmap(jax_all))(jnp.asarray(mats), jnp.asarray(rhs)).items()}
     T = tcls(torch.from_numpy(mats))
     tr = torch.from_numpy(rhs)
     chol = tst.cholesky(T)

@@ -153,7 +153,7 @@ def test_philox_engine_matches_generic_driver_moments():
     from openmcmc_tpu.linalg import structured as st
 
     s, y = _smoother_problem()
-    P0 = np.asarray(st.to_dense(gmrf.precision_irregular(jnp.asarray(s, jnp.float32))))
+    P0 = np.asarray(jax.jit(lambda v: st.to_dense(gmrf.precision_irregular(v)))(jnp.asarray(s, jnp.float32)))
     out = tspectral.run_spectral_smoother(4, y, P0, n_burn=200, n_iter=200, n_chains=1024,
                                           a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0, lam0=1.0, tau0=1.0,
                                           device="cpu")
