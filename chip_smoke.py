@@ -105,6 +105,7 @@ reports them; then one JSON line with the kernels' results; and last
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -131,6 +132,7 @@ REPLACES = {
     "mixture": "openmcmc_tpu/fused/mixture.py:107",
     "gamma_elem_draws": "openmcmc_tpu/fused/prng.py:218",
     "rj": "openmcmc_tpu/fused/rj.py:_make_kernel",
+    "gamma": "openmcmc_tpu/linalg/pallas_gamma.py:39",
 }
 # the K4 cells: bench_all.py's truncated_smoother (bench_all.py:468, :762) and the
 # flagship model past the spectral engine's tridiagonal limit (p > 1024)
@@ -202,6 +204,16 @@ K10_FLOP_PER_POINT_COMP = 15  # csrc/mixture.cu: the log-likelihood 9, max 1, ex
 K10_FLOP_PER_POINT = 8        # the uniform and its scaling, cnt / 2, the four partial sums
 K10_FLOP_PER_COMP = 120       # per sweep: the means update, one Gamma round, the log-posterior terms and sums
 K2G_FLOP_PER_ROW = 240        # csrc/prng_draws.cu gamma_elem_draws: 4 gamma_mt_elem, one round each (60)
+# csrc/gamma.cu per draw, counting what the draw needs: the shape set-up 7; each
+# round up to the first acceptance 35 (three uniforms 9, the Box-Muller normal 6,
+# t and the cube 4, the squeeze's right side 10, log u and the test 3, the select
+# and the flag 3; later rounds do not change the draw); the boost where a < 1 7
+# (its uniform, 1/a, powf, the product and the select)
+K12_FLOP_SETUP, K12_FLOP_PER_ROUND, K12_FLOP_BOOST = 7, 35, 7
+# the gamma and resume phases: K12's batch (a one-shot prior-predictive draw, the
+# use the JAX docstring gives K12) and the short runs the resumes continue
+G_N, G_KS, G_SHAPES = 1 << 24, 1_000_000, (0.3, 0.5, 1.0, 2.5, 10.0, 50.5, 500.0)
+RS_CHUNKS, RS_SHORT, RS_GEN_CHAINS, RS_GEN_ITER = 5, 10, 1024, 500
 
 
 def k6_flop_per_sweep(p):
@@ -477,13 +489,15 @@ def _wrappers():
 
     from openmcmc_tpu_torch.fused import mixture, rj
 
+    from openmcmc_tpu_torch.linalg import gamma
+
     return {"spectral_smoother": spectral.smoother_sweeps_kernel, "prng_draws": prng.draws,
             "tridiag_canonical": tridiag.sample_canonical_tridiag_kernel,
             "gmrf_smoother": gmrf_smoother.gmrf_smoother_kernel, "truncnorm_draws": prng.truncnorm_draws,
             "linreg": linreg.linreg_sweeps_kernel, "spectral_linreg": spectral.spectral_linreg_sweeps_kernel,
             "random_walk": random_walk.rw_sweeps_kernel, "mmala": mmala.mmala_sweeps_kernel,
             "spectral_mmala": spectral.spectral_mmala_sweeps_kernel, "mixture": mixture.mixture_sweeps_kernel,
-            "gamma_elem_draws": prng.gamma_elem_draws, "rj": rj.rj_sweeps_kernel}
+            "gamma_elem_draws": prng.gamma_elem_draws, "rj": rj.rj_sweeps_kernel, "gamma": gamma.gamma_kernel}
 
 
 def reset_launches():
@@ -1581,6 +1595,234 @@ def gamma_elem_phase(dev):
             "library_ms": None}
 
 
+def gamma_phase(dev, smi):
+    """K12 through its entry point ``linalg.gamma.gamma`` on a CUDA tensor of 2^24
+    shapes tiled over G_SHAPES, one launch and no other; every value against the
+    plain version on the same Philox bits; a KS test per shape on 10^6 of the
+    kernel's draws; the kernel, the plain version and torch._standard_gamma
+    timed by CUDA events."""
+    from scipy.stats import gamma as sp_gamma, kstest
+
+    from openmcmc_tpu_torch.linalg import gamma
+
+    shapes = torch.tensor(G_SHAPES, dtype=torch.float32, device=dev)
+    a = shapes.repeat(G_N // len(G_SHAPES) + 1)[:G_N].contiguous()
+    reset_launches()
+    got = gamma.gamma(SEED, a)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != only("gamma", 1):
+        raise AssertionError(f"gamma: kernel launches {launches}, not one gamma launch")
+    want, plain_ms = cuda_call_ms(lambda: gamma.gamma_plain(SEED, a))
+    close = torch.isclose(got, want, rtol=1e-4, atol=1e-5)
+    if not bool(close.all()) or not bool(torch.all(got > 0.0)):
+        raise AssertionError(f"gamma: {int((~close).sum())} of {G_N} draws differ from the plain version "
+                             "(rtol 1e-4, atol 1e-5), or a draw is not positive")
+    err = float(torch.max(torch.abs(got - want)))
+    del want
+    worst_p = 1.0
+    for i, shape in enumerate(G_SHAPES):
+        draws = got[i::len(G_SHAPES)][:G_KS].double().cpu().numpy()
+        p = float(kstest(draws, sp_gamma(shape).cdf).pvalue)
+        if not p > 1e-3:
+            raise AssertionError(f"gamma: KS test of shape {shape} on {draws.size} draws, p = {p:.3g}")
+        worst_p = min(worst_p, p)
+    ms = cuda_ms(lambda: gamma.gamma(SEED, a), 5)
+    plain_ms = min(plain_ms, cuda_ms(lambda: gamma.gamma_plain(SEED, a), 5))
+    library_ms = cuda_ms(lambda: torch._standard_gamma(a), 5)
+    rounds = int(gamma.gamma_rounds(SEED, a).sum())
+    n_flop = K12_FLOP_SETUP * G_N + K12_FLOP_PER_ROUND * rounds + K12_FLOP_BOOST * int((a < 1.0).sum())
+    bound_ms, bound_by = bound(8 * G_N, n_flop)
+    log("gamma", f"{G_N} draws, shapes {G_SHAPES}: one K12 launch; every value within rtol 1e-4, atol 1e-5 of the "
+        f"plain version (max abs err {err:.3g}); KS p >= {worst_p:.3g} per shape on {G_KS} draws (limit 1e-3)")
+    log("gamma", f"{smi}: kernel {ms:.4f} ms (median of 5), plain {plain_ms:.3f} ms, torch._standard_gamma "
+        f"{library_ms:.4f} ms (median of 5), bound {bound_ms:.4f} ms ({bound_by}: {n_flop:.3g} FLOP at "
+        f"{rounds / G_N:.4f} rounds a draw to the first acceptance, {8 * G_N:.3g} B)")
+    return {"launches": launches["gamma"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+@contextlib.contextmanager
+def calls_of(module, name):
+    """Record the (args, kw) of every call of ``module.name``, a kernel's routing
+    function (the counted kernel wrapper below it is untouched), while the
+    body runs."""
+    real, calls = getattr(module, name), []
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def warm_rows_agree(tag, kernel_fn, plain_fn, call, rows, draw="b", exact=False, **override):
+    """The kernel against its plain version on the inputs a resume built:
+    ``call`` is the (args, kw) the runner passed the routing function, ``rows``
+    the per-chain warm inputs among them, which must differ across chains (at
+    least 99 % distinct rows, so that a kernel reading one chain's row for all
+    would show); ``override`` shortens the run. Every chain agrees within rtol
+    1e-4, atol 1e-5 (log_post 1e-4 relative) or, ``exact``, bit for bit."""
+    args, kw = call
+    kw = {k: v for k, v in kw.items() if k != "bit_source"} | override
+    chains = rows[0].shape[0]
+    distinct = min(torch.unique(r.reshape(chains, -1), dim=0).shape[0] for r in rows)
+    if distinct < 0.99 * chains:
+        raise AssertionError(f"resume {tag}: the warm rows are not per chain ({distinct} distinct of {chains})")
+    got = kernel_fn(*args, **kw)
+    want = plain_fn(*args, **kw)
+    torch.cuda.synchronize()
+    if exact:
+        agree, err = int((got == want).flatten(1).all(1).sum()), float(torch.max(torch.abs(got - want)))
+    else:
+        agree, err = compare(got, want, draw)
+    if agree != chains:
+        raise AssertionError(f"resume {tag}: on the warm rows {chains - agree} of {chains} chains differ from the "
+                             "plain version")
+    log("resume", f"{tag}: the kernel on the resume's warm rows ({distinct} distinct of {chains} chains, "
+        f"n_keep {kw['n_keep'] if 'n_keep' in kw else kw['config'].prm.n_keep}) agrees with the plain version on "
+        f"every chain ({'bit for bit' if exact else f'rtol 1e-4, max abs err {err:.3g}'})")
+    return err
+
+
+def short_resume(tag, mcmc, engine, kernel, log_p_state, router, replay, limit=1e-4):
+    """A short fused run and its resume, the counts at 0 around the resume: one
+    launch of ``kernel`` and no other, the same engine, no burn-in (the
+    stores' length), and log_post equal to Model.log_p at stored draws of 3
+    chains x 3 draws within ``limit`` relative (``log_p_state(state)``
+    completes a draw's state); then ``replay`` holds the kernel against its
+    plain version on the call the resume made to ``router`` (module, name)."""
+    first = mcmc.run(engine="auto")
+    reset_launches()
+    with calls_of(*router) as calls:
+        res = mcmc.run(engine="auto", resume=first)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if res.engine != engine or first.engine != engine or launches != only(kernel, 1):
+        raise AssertionError(f"resume {tag}: engines {first.engine}, {res.engine}, kernel launches {launches}")
+    if res.final_key in (first.final_key, mcmc.seed) or tuple(res.log_post.shape) != (mcmc.n_chains, mcmc.n_iter):
+        raise AssertionError(f"resume {tag}: final_key {res.final_key} or log_post {tuple(res.log_post.shape)}")
+    worst = 0.0
+    for c in (0, 1, mcmc.n_chains - 1):
+        for t in (0, mcmc.n_iter // 2, mcmc.n_iter - 1):
+            state = dict(mcmc.data)
+            state.update({name: v[c, t] for name, v in res.store.items()})
+            want = float(mcmc.model.log_p(log_p_state(state)))
+            worst = max(worst, abs(float(res.log_post[c, t]) - want) / max(1.0, abs(want)))
+    if not worst <= limit:
+        raise AssertionError(f"resume {tag}: log_post differs from Model.log_p by {worst:.3g} (relative)")
+    log("resume", f"{tag}: {mcmc.n_chains} chains, {mcmc.n_burn} + {mcmc.n_iter} sweeps, then a resume of "
+        f"{mcmc.n_iter}: engine {res.engine}, kernel launches {launches}; log_post within {worst:.3g} (relative) of "
+        f"Model.log_p at 3 chains x 3 draws (limit {limit:g})")
+    replay(calls[-1])
+    return launches[kernel]
+
+
+def resume_phase(dev, smi, fused_moments):
+    """Operations on the card: the flagship through run_chunked (5 chunks, each
+    one K1 launch, a checkpoint after each), its posterior against the main
+    path's single run, a resume from the loaded checkpoint against a resume
+    from the live result; short resumes of K4 truncated, K6 and K11; a generic
+    resume of the flagship twin, one K3 launch a sweep."""
+    import tempfile
+
+    from openmcmc_tpu_torch import _build
+    from openmcmc_tpu_torch.checkpoint import load_checkpoint
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs, linreg as lr, rj, spectral
+    from openmcmc_tpu_torch.mcmc import next_key
+
+    mcmc = build_mcmc(dev)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = f"{tmp}/flagship.npz"
+        reset_launches()
+        t0 = time.perf_counter()
+        with calls_of(spectral, "smoother_sweeps") as k1_calls:
+            res = mcmc.run_chunked(RS_CHUNKS, checkpoint_path=path, progress=True, engine="auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if res.engine != "fused_smoother_spectral" or launches != only("spectral_smoother", RS_CHUNKS):
+            raise AssertionError(f"resume: run_chunked ran {res.engine} with kernel launches {launches}")
+        check_store(res, "run_chunked")
+        keys = [mcmc.seed]
+        for _ in range(RS_CHUNKS):
+            keys.append(next_key(keys[-1]))
+        if res.final_key != keys[-1] or len(set(keys)) != RS_CHUNKS + 1:
+            raise AssertionError(f"resume: final_key {res.final_key}, chunk keys {keys}")
+        z = moments_z(posterior_moments(res), fused_moments)
+        if not z < 5.0:
+            raise AssertionError(f"resume: run_chunked's posterior means off the single run's by {z:.2f} MC sd")
+        restored = load_checkpoint(path, device=dev)
+    mcmc.n_iter = 50
+    live, again = mcmc.run(resume=res, engine="auto"), mcmc.run(resume=restored, engine="auto")
+    if live.final_key != again.final_key or not all(torch.equal(live.store[k], again.store[k]) for k in live.store):
+        raise AssertionError("resume: a resume from the restored checkpoint differs from one from the live result")
+    if not torch.equal(live.log_post, again.log_post):
+        raise AssertionError("resume: log_post of the restored resume differs")
+    log("resume", f"run_chunked({RS_CHUNKS}, engine='auto') of {N_CHAINS} chains, {N_BURN} + {N_ITER} sweeps: "
+        f"{launches['spectral_smoother']} K1 launches, {wall:.3f} s with a checkpoint per chunk; chunk keys "
+        f"{keys[1:]}; means of b, lambda, tau within {z:.2f} MC sd of the single run's (limit 5); a 50-draw resume "
+        "from the loaded checkpoint equals the live resume bit for bit")
+    del res, restored, live, again
+    torch.cuda.empty_cache()
+    k1_args = k1_calls[-1][0]
+    warm_rows_agree("K1, last chunk", spectral.smoother_sweeps_kernel, spectral.smoother_sweeps_plain, k1_calls[-1],
+                    k1_args[5:7], n_keep=RS_SHORT // 2)
+
+    trunc = truncated_mcmc(dev)
+    trunc.n_burn, trunc.n_iter = RS_SHORT, RS_SHORT
+    n_k4 = short_resume(
+        "K4 truncated", trunc, "fused_gmrf_smoother_truncated", "gmrf_smoother", lambda s: s, (gs, "gmrf_smoother"),
+        lambda call: warm_rows_agree("K4 truncated", gs.gmrf_smoother_kernel, gs.gmrf_smoother_plain, call,
+                                     (*call[0][7:9], call[1]["b_init"])))
+    X, y = example3_data()
+    lin = linreg_mcmc(dev, X, y, R_CHAINS, RS_SHORT, RS_SHORT, R_SEED, 1e-3, 1e-3)
+    # K6's log_post takes tau's form as yPy - 2 c'b + b'Gb in float32 (the JAX
+    # kernel's form): at example 3 it cancels about 550-fold (yPy 517 against a
+    # residual sum of 0.95), and its rounding moves log_post by up to 1.7e-4
+    # relative (0.01 at |log_post| 68, the plain version on the CPU alike); the
+    # limit allows eight ulps of yPy at tau 130
+    n_k6 = short_resume(
+        "K6", lin, "fused_linreg", "linreg", lambda s: s, (lr, "linreg_sweeps"),
+        lambda call: warm_rows_agree("K6", lr.linreg_sweeps_kernel, lr.linreg_sweeps_plain, call, call[0][6:8],
+                                     draw="beta"), limit=5e-4)
+    rjm = rj_mcmc(dev, True, n_iter=RS_SHORT, store_names=("n_basis", "beta", "theta", "omega", "tau_y"))
+    g = rjm.samplers[3].state_birth_function.__self__
+
+    def with_basis(state):
+        state["B"] = g.make(state["X"], state["theta"], state["omega"], state["n_basis"])
+        return state
+
+    n_k11 = short_resume(
+        "K11", rjm, "fused_rj", "rj", with_basis, (rj, "rj_sweeps"),
+        lambda call: warm_rows_agree("K11", rj.rj_sweeps_kernel, rj.rj_sweeps_plain, call, call[0][1:2], exact=True))
+
+    twin = build_mcmc(dev, n_chains=RS_GEN_CHAINS)
+    twin.n_iter = 100
+    first = twin.run()
+    twin.n_iter = RS_GEN_ITER
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = twin.run(resume=first)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = read_launches()
+    if gen.engine != "generic" or gen_launches != only("tridiag_canonical", RS_GEN_ITER):
+        raise AssertionError(f"resume: the generic resume ran {gen.engine} with kernel launches {gen_launches}")
+    z_gen = moments_z(posterior_moments(gen), fused_moments)
+    if not z_gen < 5.0:
+        raise AssertionError(f"resume: the generic resume's posterior means off the fused run's by {z_gen:.2f} MC sd")
+    log("resume", f"{smi}: generic resume of the flagship at {RS_GEN_CHAINS} chains ({N_BURN} + 100 sweeps, then "
+        f"{RS_GEN_ITER}): {gen_launches['tridiag_canonical']} K3 launches, {gen_wall:.3f} s; means of b, lambda, tau "
+        f"within {z_gen:.2f} MC sd of the fused run's (limit 5)")
+    return {"spectral_smoother": launches["spectral_smoother"], "gmrf_smoother": n_k4, "linreg": n_k6, "rj": n_k11,
+            "tridiag_canonical": gen_launches["tridiag_canonical"]}
+
+
 def mixture_mcmc(dev, kind, n_chains=None, store_names=("means", "lams"), gen_burn=None, gen_iter=None):
     """The mixture cells in the port: bench_all.py's ``mixture`` (n = 200, K = 2,
     numpy seed 0, RandomWalkLoop step 0.3 on [-20, 20]^2), ``mixture_conjugate``
@@ -2107,6 +2349,7 @@ def main():
     k1_res = timing_phase(mcmc, args, kw, hyp, ess_b, k1_plain_ms, smi)
     del mcmc, args
     generic_launches = generic_phase(dev, fused_moments, tri_res["ms"], smi)
+    resume_phase(dev, smi, fused_moments)
     trunc_draws = truncnorm_phase(dev)
     k4_err = gmrf_small_phase(dev)
     k4_trunc, k4_trunc_launches = truncated_phase(dev, smi)
@@ -2122,6 +2365,7 @@ def main():
     k9 = mmala_phase(dev, smi, wide=True)
     torch.cuda.empty_cache()
     gamma_elem = gamma_elem_phase(dev)
+    k12 = gamma_phase(dev, smi)
     k10_small_err = mixture_small_phase(dev)
     k10, gamma_elem_launches = {}, 0
     for kind in ("mixture", "mixture_conjugate", "mixture_large"):
@@ -2157,6 +2401,9 @@ def main():
     ] + [
         {"name": kind, "route": "cuda", "source": "openmcmc_tpu_torch/csrc/rj.cu", "replaces": REPLACES["rj"],
          **entry, "max_abs_err": max(entry["max_abs_err"], k11_small_err)} for kind, entry in k11.items()
+    ] + [
+        {"name": "gamma", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/gamma.cu", "replaces": REPLACES["gamma"],
+         **k12},
     ]
     # prng_draws and truncnorm_draws are not launched by any path: their device
     # functions run inlined in the smoother kernels, and these kernels only

@@ -30,8 +30,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gmrf_smoother.cu", "linreg.cu", "mixture.cu", "mmala.cu", "prng_draws.cu", "random_walk.cu", "rj.cu",
-           "spectral_linreg.cu", "spectral_mmala.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
+SOURCES = ("gamma.cu", "gmrf_smoother.cu", "linreg.cu", "mixture.cu", "mmala.cu", "prng_draws.cu", "random_walk.cu",
+           "rj.cu", "spectral_linreg.cu", "spectral_mmala.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
 HEADERS = ("layout.cuh", "philox.cuh", "prng.cuh", "spectral_store.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -135,6 +135,8 @@ def library() -> ctypes.CDLL:
     lib.mixture_launch.restype = ctypes.c_int
     lib.rj_launch.argtypes = [_P] * 6
     lib.rj_launch.restype = ctypes.c_int
+    lib.gamma_launch.argtypes = [ctypes.c_uint32, ctypes.c_longlong, _P, _P, _P]
+    lib.gamma_launch.restype = ctypes.c_int
     return lib
 
 

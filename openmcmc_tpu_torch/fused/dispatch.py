@@ -22,13 +22,22 @@ kernel K10; and between the last two, as in the JAX package, the
 reversible-jump matcher (``fused_rj``, kernel K11) for the knot-basis regression
 with a Null or a Gaussian likelihood. The Metropolis runners return the JAX
 package's statistics: accept and proposal counts over burn-in and sampling, and
-the adapted log_step. Resume and mesh sharding are not ported (ROADMAP.md queue
-1: operations, parallel).
+the adapted log_step.
+
+Resume, as the JAX package gates it: a runner that sets ``supports_resume``
+(and whose ``resume_ok``, where it has one, accepts the result) is bound to the
+resumed result and continues its chains from per-chain warm rows with no
+burn-in. The smoother (K1, K4), linear-regression (K5, K6) and reversible-jump
+(K11) runners do; the random-walk, mMALA and mixture runners not yet, since
+their kernels take shared initial values only, so a resume of those falls
+back to the generic driver under ``"auto"``. Mesh sharding is not ported
+(ROADMAP.md queue 1: parallel).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -91,9 +100,10 @@ def _scaled_precision(dist):
     return None
 
 
-def match_fused_engine(mcmc) -> Optional[Callable]:
+def match_fused_engine(mcmc, resume=None) -> Optional[Callable]:
     """Return a callable ``runner(seed, bit_source=None)`` running the MCMC as a
-    fused engine, or None.
+    fused engine, or None; given a ``resume`` result, one that continues its
+    chains, or None when the matched engine cannot resume from it.
 
     Thinning: the matcher sees a shallow clone whose ``n_burn`` is the SWEEP count
     (n_burn * n_thin) and whose ``_kernel_thin`` the engines apply in-kernel."""
@@ -108,8 +118,23 @@ def match_fused_engine(mcmc) -> Optional[Callable]:
         if runner is not None:
             if mcmc.model.response is not None and not _fitted_ok(mcmc, runner):
                 return None
+            if resume is not None:
+                if not getattr(runner, "supports_resume", False):
+                    return None
+                resume_ok = getattr(runner, "resume_ok", None)
+                if resume_ok is not None and not resume_ok(resume):
+                    return None
+                bound = functools.partial(runner, resume=resume)
+                bound.engine_name = runner.engine_name
+                bound.store_keys = runner.store_keys
+                runner = bound
             return runner
     return None
+
+
+def _final_rows(resume, *names):
+    """Each named final-state entry of a resumed result as a flat (chains,) row."""
+    return [resume.final_state[name].reshape(-1) for name in names]
 
 
 def _fitted_ok(mcmc, runner) -> bool:
@@ -212,6 +237,17 @@ def _match_smoother(mcmc) -> Optional[Callable]:
         }
         return store, out["log_post"], {latent: {}, lam_name: {}, tau_name: {}}
 
+    def resume_init(resume):
+        """The per-chain (lam, tau) warm start, the conjugate kernels' whole
+        carry (the latent is redrawn from its full conditional first); a
+        truncated latent is carried too, so its final draws join it."""
+        if resume is None:
+            return None, mcmc.n_burn
+        init = dict(zip(("lam", "tau"), _final_rows(resume, lam_name, tau_name)))
+        if truncated:
+            init["b"] = resume.final_state[latent]
+        return init, 0
+
     if spectral:
         # host preparation, once per match. log_post must match Model.log_p's
         # convention for log|P0|: the clamped structured Cholesky, which for an
@@ -221,11 +257,12 @@ def _match_smoother(mcmc) -> Optional[Callable]:
         plam_dense = st.to_dense(st.to(plam, "cpu")).numpy()
         noise_host = ptau.diag_.detach().cpu().numpy()
 
-        def run(seed, bit_source=None):
+        def run(seed, bit_source=None, resume=None):
+            init, n_burn = resume_init(resume)
             out = run_spectral_smoother(
-                seed, y, plam_dense, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=mcmc.n_chains,
+                seed, y, plam_dense, n_burn=n_burn, n_iter=mcmc.n_iter, n_chains=mcmc.n_chains,
                 a_lam=hyp_lam[0], b_lam=hyp_lam[1], a_tau=hyp_tau[0], b_tau=hyp_tau[1],
-                lam0=lam0, tau0=tau0, noise_diag=noise_host, mu0=mu, logdet_p0=logdet_p0,
+                lam0=lam0, tau0=tau0, noise_diag=noise_host, mu0=mu, logdet_p0=logdet_p0, init=init,
                 n_thin=_kernel_thin(mcmc), device=mcmc.device, bit_source=bit_source,
             )
             return package(out)
@@ -245,17 +282,19 @@ def _match_smoother(mcmc) -> Optional[Callable]:
             if b_init_v is not None and b_init_v.shape[0] != p_lat:
                 return None  # per-chain initial latents are not representable
 
-        def run(seed, bit_source=None):
+        def run(seed, bit_source=None, resume=None):
+            init, n_burn = resume_init(resume)
             out = run_fused_smoother(
-                seed, y, None, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=mcmc.n_chains,
+                seed, y, None, n_burn=n_burn, n_iter=mcmc.n_iter, n_chains=mcmc.n_chains,
                 a_lam=hyp_lam[0], b_lam=hyp_lam[1], a_tau=hyp_tau[0], b_tau=hyp_tau[1],
                 lam0=lam0, tau0=tau0, P0_bands=plam.bands, noise_diag=ptau.diag_, mu0=mu,
-                lower=lower_v, upper=upper_v, b_init=b_init_v, n_thin=_kernel_thin(mcmc),
+                lower=lower_v, upper=upper_v, b_init=b_init_v, init=init, n_thin=_kernel_thin(mcmc),
                 device=mcmc.device, bit_source=bit_source,
             )
             return package(out)
 
         run.engine_name = "fused_gmrf_smoother_truncated" if truncated else "fused_gmrf_smoother"
+    run.supports_resume = True
     run.store_keys = frozenset({latent, lam_name, tau_name})
     return run
 
@@ -315,12 +354,15 @@ def _match_linreg(mcmc) -> Optional[Callable]:
     else:
         runner, engine_name = run_spectral_linreg, "fused_linreg_spectral"
 
-    def run(seed, bit_source=None):
+    def run(seed, bit_source=None, resume=None):
+        init, n_burn = None, mcmc.n_burn
+        if resume is not None:  # the kernels' whole carry is (lam, tau), as the smoother's
+            init, n_burn = dict(zip(("lam", "tau"), _final_rows(resume, lam_name, tau_name))), 0
         out = runner(
-            seed, X, y, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=mcmc.n_chains,
+            seed, X, y, n_burn=n_burn, n_iter=mcmc.n_iter, n_chains=mcmc.n_chains,
             a_tau=hyp_tau[0], b_tau=hyp_tau[1], a_lam=hyp_lam[0], b_lam=hyp_lam[1], lam0=lam0, tau0=tau0,
-            mu=mu, plam_diag=plam.diag_, ptau_diag=ptau.diag_, n_thin=_kernel_thin(mcmc), device=mcmc.device,
-            bit_source=bit_source,
+            mu=mu, plam_diag=plam.diag_, ptau_diag=ptau.diag_, init=init, n_thin=_kernel_thin(mcmc),
+            device=mcmc.device, bit_source=bit_source,
         )
         store = {
             latent: out["beta"][..., None],
@@ -330,6 +372,7 @@ def _match_linreg(mcmc) -> Optional[Callable]:
         return store, out["log_post"], {latent: {}, lam_name: {}, tau_name: {}}
 
     run.engine_name = engine_name
+    run.supports_resume = True
     run.store_keys = frozenset({latent, lam_name, tau_name})
     return run
 
@@ -685,18 +728,31 @@ def _match_rj(mcmc) -> Optional[Callable]:
     X_host = _host_array(X).astype(np.float64).reshape(-1)
     step = {s.param: float(s.step_size.reshape(())) for s in (mala, rw_th, rw_om)}
 
-    def run(seed, bit_source=None):
+    def run(seed, bit_source=None, resume=None):
         nc = mcmc.n_chains
         extra = {}
         if lik:
             extra = dict(y=np.asarray(y_data, np.float64).reshape(-1), a_tau=hyp_tau[0], b_tau=hyp_tau[1], tau0=tau0)
+        warm, n_burn, prop0 = None, mcmc.n_burn, 0
+        if resume is not None:
+            fs, rstats = resume.final_state, resume.stats
+            warm = {"beta": fs[beta].reshape(nc, n_max), "theta": fs[theta].reshape(nc, n_max),
+                    "omega": fs[omega].reshape(nc, n_max), "k": fs[count].reshape(-1),
+                    # the kernel's counter order: acc_mmala, acc_theta, acc_omega, acc_rj, prop_theta, prop_omega
+                    "counters": torch.stack([rstats[name][key].reshape(-1).to(torch.float32) for name, key in (
+                        (beta, "accept"), (theta, "accept"), (omega, "accept"), (count, "accept"),
+                        (theta, "proposal"), (omega, "proposal"))])}
+            if lik:
+                warm["tau"] = fs[tau_name].reshape(-1)
+            prop0 = rstats[count]["proposal"].reshape(-1).to(device=mcmc.device, dtype=torch.int32)
+            n_burn = 0
         out = run_fused_rj(
-            seed, X_host, n_burn=mcmc.n_burn, n_iter=mcmc.n_iter, n_chains=nc, n_max=n_max, beta0=host[beta],
+            seed, X_host, n_burn=n_burn, n_iter=mcmc.n_iter, n_chains=nc, n_max=n_max, beta0=host[beta],
             theta0=host[theta], omega0=host[omega], k0=k0, rho=rho, mu_beta=mu_b, tau_beta=tau_b, a_omega=hyp_om[0],
             b_omega=hyp_om[1], theta_limits=th_lims, omega_rw_limits=om_lims,
             match_limits=(float(mp["limits"][0]), float(mp["limits"][1])), match_scale=float(mp["scale"]),
             step_mmala=step[beta], step_theta=step[theta], step_omega=step[omega], stream_params=stream,
-            n_thin=_kernel_thin(mcmc), device=mcmc.device, bit_source=bit_source, **extra,
+            init=warm, n_thin=_kernel_thin(mcmc), device=mcmc.device, bit_source=bit_source, **extra,
         )
         store = {count: out["n_basis"][..., None, None].to(torch.int32)}
         if lik:
@@ -707,7 +763,7 @@ def _match_rj(mcmc) -> Optional[Callable]:
             store[theta] = out["theta"][:, :, None, :]
             store[omega] = out["omega"][:, :, None, :]
         dev = out["log_post"].device
-        n_prop = torch.full((nc,), mcmc.n_burn + mcmc.n_iter * _kernel_thin(mcmc), dtype=torch.int32, device=dev)
+        n_prop = prop0 + torch.full((nc,), n_burn + mcmc.n_iter * _kernel_thin(mcmc), dtype=torch.int32, device=dev)
         stats = {
             beta: {"accept": out["accept_mmala"].to(torch.int32), "proposal": n_prop},
             theta: {"accept": out["accept_theta"].to(torch.int32), "proposal": out["proposal_theta"].to(torch.int32)},
@@ -719,7 +775,17 @@ def _match_rj(mcmc) -> Optional[Callable]:
         return store, out["log_post"], stats
 
     run.engine_name = "fused_rj"
+    run.supports_resume = True
     run.store_keys = frozenset({count} | ({tau_name} if lik else set()) | ({beta, theta, omega} if stream else set()))
+
+    def resume_ok(resume):
+        """A warm start needs the padded parameters' final values: present after
+        a generic run or a streamed fused run, absent after a count-only one."""
+        needed = (beta, theta, omega, count) + ((tau_name,) if lik else ())
+        return all(name in resume.final_state for name in needed) and all(
+            name in resume.stats and "accept" in resume.stats[name] for name in (beta, theta, omega, count))
+
+    run.resume_ok = resume_ok
     return run
 
 

@@ -19,9 +19,8 @@ and odd colour uniforms, each over all p rows; then lam's rounds, then tau's.
 Not ported, because they exist for the TPU only: the padding of p to a multiple
 of CHUNK and its row mask (P0's last off-diagonal entry is never read as a
 coupling, so padding rows never met the real ones), the BLOCK_B lane blocks and
-the double-buffered store DMAs. Resume (``init=``) is not ported yet
-(ROADMAP.md queue 1: operations); the per-chain ``lam0``/``tau0`` rows and a
-per-chain ``b_init`` are the inputs it will need.
+the double-buffered store DMAs. A resume (``init=``) feeds the kernel
+per-chain ``lam0``/``tau0`` rows and, truncated, a per-chain ``b_init``.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from openmcmc_tpu_torch.fused import prng
-from openmcmc_tpu_torch.fused.layout import store_index
+from openmcmc_tpu_torch.fused.layout import chain_rows, store_index
 from openmcmc_tpu_torch.fused.spectral import _lgam
 from openmcmc_tpu_torch.linalg import gmrf
 from openmcmc_tpu_torch.linalg import structured as st
@@ -317,7 +316,7 @@ def prepare(y, s=None, ridge=0.001, P0_bands=None, noise_diag=None, mu0=None, lo
 def run_fused_smoother(
     seed, y, s, n_burn, n_iter, n_chains,
     a_lam=10.0, b_lam=1.0, a_tau=1.0, b_tau=1.0, lam0=100.0, tau0=1.0, ridge=0.001,
-    P0_bands=None, noise_diag=None, mu0=None, n_thin=1, lower=None, upper=None, b_init=None,
+    P0_bands=None, noise_diag=None, mu0=None, n_thin=1, lower=None, upper=None, b_init=None, init=None,
     device="cuda", bit_source=None,
 ):
     """The GMRF smoother with a tridiagonal prior precision, any p, one launch.
@@ -331,16 +330,20 @@ def run_fused_smoother(
     carried latent starts at ``b_init`` ((p,) shared or (chains, p)) clipped
     into the box, by default y clipped. ``n_burn`` is the burn-in SWEEP count,
     ``n_iter`` the stored draws, each after ``n_thin`` sweeps; ``lam0``/``tau0``
-    are scalars or per-chain (chains,) values. ``device`` is the card unless
+    are scalars or per-chain (chains,) values. ``init``, the warm start of a
+    resume, is a dict of per-chain ``lam`` and ``tau`` (chains,) and, in the
+    truncated variant, the carried latent ``b`` (chains, p), which replace
+    lam0, tau0 and b_init. ``device`` is the card unless
     the caller asks for the CPU; ``bit_source(sweep, site, shape)`` replaces
     Philox (CPU only). Returns ``b`` (chains, n_iter, p) and
     ``lam``/``tau``/``log_post`` (chains, n_iter)."""
     device = torch.device(device)
+    if init is not None and "b" in init:
+        b_init = torch.as_tensor(init["b"]).reshape(n_chains, -1)
     prep = prepare(y, s, ridge=ridge, P0_bands=P0_bands, noise_diag=noise_diag, mu0=mu0, lower=lower,
                    upper=upper, b_init=b_init, device=device)
     p = prep["y"].shape[0]
-    rows = [torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1).expand(n_chains).contiguous()
-            for v in (lam0, tau0)]
+    rows = chain_rows(n_chains, lam0, tau0, init, device)
     kw = {}
     if "lo" in prep:
         kw = dict(lo=prep["lo"], hi=prep["hi"], b_init=prep["b_init"].expand(n_chains, p).contiguous())

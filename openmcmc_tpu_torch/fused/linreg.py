@@ -25,9 +25,8 @@ Bits as in :mod:`openmcmc_tpu_torch.fused.prng`: site 0 holds the p normals,
 then come tau's Marsaglia-Tsang sites, then lam's.
 
 Not ported, because they exist for the TPU only: the BLOCK_B lane blocks, the
-out_rows sublane padding and the double-buffered store DMAs. Resume
-(``init=``) is not ported yet (ROADMAP.md queue 1: operations); the per-chain
-``lam0``/``tau0`` rows are the inputs it will need.
+out_rows sublane padding and the double-buffered store DMAs. A resume
+(``init=``) feeds the kernel per-chain ``lam0``/``tau0`` rows.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ import numpy as np
 import torch
 
 from openmcmc_tpu_torch.fused import prng
-from openmcmc_tpu_torch.fused.layout import store_index
+from openmcmc_tpu_torch.fused.layout import chain_rows, store_index
 from openmcmc_tpu_torch.fused.spectral import _lgam
 
 MAX_P = 16
@@ -251,7 +250,7 @@ def _vector(v, n, fill, device) -> torch.Tensor:
 def run_fused_linreg(
     seed, X, y, n_burn, n_iter, n_chains,
     a_tau=1e-3, b_tau=1e-3, a_lam=1e-3, b_lam=1e-3, lam0=0.01, tau0=1.0, n_thin=1,
-    mu=None, plam_diag=None, ptau_diag=None, device="cuda", bit_source=None,
+    mu=None, plam_diag=None, ptau_diag=None, init=None, device="cuda", bit_source=None,
 ):
     """Bayesian linear regression, p <= 16, the whole run in one launch.
 
@@ -259,7 +258,8 @@ def run_fused_linreg(
     ``mu`` (default zeros), ``plam_diag`` and ``ptau_diag`` (default ones) the
     prior mean and the two precision diagonals; ``n_burn`` the burn-in SWEEP
     count, ``n_iter`` the stored draws, each after ``n_thin`` sweeps;
-    ``lam0``/``tau0`` scalars or per-chain (chains,) values. ``device`` is the
+    ``lam0``/``tau0`` scalars or per-chain (chains,) values, replaced by
+    ``init``'s per-chain ``lam`` and ``tau`` when given. ``device`` is the
     card unless the caller asks for the CPU; ``bit_source(sweep, site, shape)``
     replaces Philox (CPU only). Returns ``beta`` (chains, n_iter, p) and
     ``lam``/``tau``/``log_post`` (chains, n_iter)."""
@@ -272,8 +272,7 @@ def run_fused_linreg(
     y = _vector(y, n_obs, 0.0, device)
     mu, plam, ptau = _vector(mu, p, 0.0, device), _vector(plam_diag, p, 1.0, device), _vector(ptau_diag, n_obs, 1.0, device)
     G, c, scal = sufficient_statistics(X, y, plam, ptau)
-    rows = [torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1).expand(n_chains).contiguous()
-            for v in (lam0, tau0)]
+    rows = chain_rows(n_chains, lam0, tau0, init, device)
     return linreg_sweeps(
         seed, G, c, plam, mu, scal, *rows, n_obs=float(n_obs), a_lam=float(a_lam), b_lam=float(b_lam),
         a_tau=float(a_tau), b_tau=float(b_tau), n_burn=int(n_burn), n_keep=int(n_iter), n_thin=int(n_thin),

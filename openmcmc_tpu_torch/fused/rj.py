@@ -48,8 +48,7 @@ the deletion uniform, the accept uniform; with a likelihood, tau's Gamma rounds.
 
 Not ported, because they exist for the TPU only: the BLOCK_B lane blocks, the
 double-buffered store DMA and the concrete-layout zero trick. ``init=`` takes
-per-chain initial rows; ``MCMC.run(resume=...)`` does not use it yet (ROADMAP.md
-queue 1: operations).
+per-chain initial rows, the warm start ``MCMC.run(resume=...)`` gives it.
 """
 
 from __future__ import annotations

@@ -61,7 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from openmcmc_tpu_torch.fused import prng
-from openmcmc_tpu_torch.fused.layout import store_index
+from openmcmc_tpu_torch.fused.layout import chain_rows, store_index
 
 MAX_P = 256  # spectral linear regression; past it the generic driver runs
 PAD = 8  # p is rounded up to this in the JAX kernel's (p_pad, chains) sums
@@ -276,20 +276,22 @@ def smoother_sweeps(seed, V, s, wy, wmu, lam0, tau0, *, bit_source=None, **kw):
 def run_spectral_smoother(
     seed, y, P0, n_burn, n_iter, n_chains,
     a_lam=10.0, b_lam=1.0, a_tau=1.0, b_tau=1.0, lam0=100.0, tau0=1.0,
-    noise_diag=None, mu0=None, logdet_p0=None, n_thin=1, device="cuda", bit_source=None,
+    noise_diag=None, mu0=None, logdet_p0=None, init=None, n_thin=1, device="cuda", bit_source=None,
 ):
     """GMRF smoother with any symmetric PSD prior precision, p <= 8192, one launch.
 
     Arguments as the JAX package's ``run_spectral_smoother``: ``n_burn`` is the
     burn-in SWEEP count, ``n_iter`` the stored draws, each after ``n_thin``
-    sweeps. ``lam0``/``tau0`` are scalars or per-chain (chains,) values.
+    sweeps. ``lam0``/``tau0`` are scalars or per-chain (chains,) values;
+    ``init``, a dict of per-chain ``lam`` and ``tau`` (chains,), replaces them
+    (the warm start of a resume).
     ``device`` is the card unless the caller asks for the CPU.
     ``bit_source(sweep, site, shape)`` replaces Philox (CPU only). Returns
     ``b`` (chains, n_iter, p) and ``lam``/``tau``/``log_post`` (chains, n_iter)."""
     prep = prepare(y, P0, noise_diag=noise_diag, mu0=mu0, logdet_p0=logdet_p0)
     device = torch.device(device)
     f32 = dict(dtype=torch.float32, device=device)
-    rows = [torch.as_tensor(v, **f32).reshape(-1).expand(n_chains).contiguous() for v in (lam0, tau0)]
+    rows = chain_rows(n_chains, lam0, tau0, init, device)
     return smoother_sweeps(
         seed, torch.as_tensor(prep["V"], **f32), *(torch.as_tensor(prep[k], **f32) for k in ("s", "wy", "wmu")),
         *rows, logdet_p0=float(np.float32(prep["logdet_p0"])), logdet_d=float(np.float32(prep["logdet_d"])),
@@ -505,20 +507,20 @@ def spectral_linreg_sweeps(seed, V, s, wmu, cv, lam0, tau0, *, bit_source=None, 
 def run_spectral_linreg(
     seed, X, y, n_burn, n_iter, n_chains,
     a_tau=1e-3, b_tau=1e-3, a_lam=1e-3, b_lam=1e-3, lam0=0.01, tau0=1.0,
-    mu=None, plam_diag=None, ptau_diag=None, n_thin=1, device="cuda", bit_source=None,
+    mu=None, plam_diag=None, ptau_diag=None, init=None, n_thin=1, device="cuda", bit_source=None,
 ):
     """Bayesian linear regression, p <= 256, the whole run in one launch.
 
     Model, arguments and results as :func:`openmcmc_tpu_torch.fused.linreg.
     run_fused_linreg` (``beta`` (chains, n_iter, p), ``lam``/``tau``/``log_post``
     (chains, n_iter)); the host does one f64 generalized eigendecomposition
-    instead of a Cholesky per sweep. ``device`` is the card unless the caller
-    asks for the CPU; ``bit_source(sweep, site, shape)`` replaces Philox (CPU
-    only)."""
+    instead of a Cholesky per sweep; ``init`` (per-chain ``lam`` and ``tau``)
+    replaces lam0/tau0. ``device`` is the card unless the caller asks for the
+    CPU; ``bit_source(sweep, site, shape)`` replaces Philox (CPU only)."""
     prep = prepare_linreg(X, y, mu=mu, plam_diag=plam_diag, ptau_diag=ptau_diag)
     device = torch.device(device)
     f32 = dict(dtype=torch.float32, device=device)
-    rows = [torch.as_tensor(v, **f32).reshape(-1).expand(n_chains).contiguous() for v in (lam0, tau0)]
+    rows = chain_rows(n_chains, lam0, tau0, init, device)
     return spectral_linreg_sweeps(
         seed, torch.as_tensor(prep["V"], **f32), *(torch.as_tensor(prep[k], **f32) for k in ("s", "wmu", "cv")),
         *rows, **{k: float(np.float32(prep[k])) for k in ("yPy", "logdet_plam", "logdet_ptau")},

@@ -64,6 +64,37 @@ def test_spectral_kernel_matches_plain(dev, p, n_chains, n_thin, a_lam):
                      <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
 
 
+def _warm_rows(dev, n_chains, seed):
+    """Per-chain (lam, tau) rows that differ from chain to chain, as a resume's."""
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return torch.as_tensor(rng.uniform(1.0, 30.0, n_chains), **f32), torch.as_tensor(rng.uniform(0.3, 3.0, n_chains),
+                                                                                     **f32)
+
+
+def test_spectral_kernel_warm_rows_match_plain(dev):
+    """K1 started from per-chain (lam, tau) rows, as a resume starts it (no
+    burn-in), against its plain version: p 100, 96 chains, n_keep 5."""
+    from openmcmc_tpu_torch.fused import spectral
+
+    p, n_chains = 100, 96
+    rng = np.random.default_rng(3)
+    A = rng.normal(size=(p, p))
+    prep = spectral.prepare(rng.normal(size=p), A @ A.T / p + 0.1 * np.eye(p), noise_diag=rng.uniform(0.5, 2.0, p),
+                            mu0=rng.normal(size=p))
+    args = [torch.as_tensor(prep[k], dtype=torch.float32, device=dev).contiguous() for k in ("V", "s", "wy", "wmu")]
+    args += _warm_rows(dev, n_chains, 4)
+    kw = dict(logdet_p0=prep["logdet_p0"], logdet_d=prep["logdet_d"], a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0,
+              n_burn=0, n_keep=5, n_thin=1)
+    got = spectral.smoother_sweeps(9, *args, **kw)
+    want = spectral.smoother_sweeps_plain(9, *args, **kw)
+    torch.cuda.synchronize()
+    for name in ("b", "lam", "tau"):
+        torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
+    assert torch.all(torch.abs(got["log_post"] - want["log_post"])
+                     <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
+
+
 def test_cuda_path_refuses_injected_bits(dev):
     from openmcmc_tpu_torch.fused import spectral
 
@@ -192,6 +223,29 @@ def test_gmrf_smoother_kernel_matches_plain(dev, truncated, n_chains, p):
                      <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
 
 
+@pytest.mark.parametrize("truncated", [False, True], ids=["thomas", "truncated"])
+def test_gmrf_smoother_kernel_warm_rows_match_plain(dev, truncated):
+    """K4 started from per-chain (lam, tau) rows and, truncated, a per-chain
+    latent inside the box, as a resume starts it (no burn-in), against its plain
+    version: p 1031, 300 chains, n_keep 4."""
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs
+
+    n_chains, p = 300, 1031
+    args, kw = _k4_inputs(dev, n_chains, p, truncated)
+    args[6:8] = _warm_rows(dev, n_chains, 5)
+    if truncated:
+        u = torch.rand((n_chains, p), generator=torch.Generator().manual_seed(6)).to(dev)
+        kw["b_init"] = (kw["lo"] + u * (kw["hi"] - kw["lo"])).contiguous()
+    kw.update(n_burn=0, n_keep=4, n_thin=1)
+    got = gs.gmrf_smoother(13, *args, **kw)
+    want = gs.gmrf_smoother_plain(13, *args, **kw)
+    torch.cuda.synchronize()
+    for name in ("b", "lam", "tau"):
+        torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
+    assert torch.all(torch.abs(got["log_post"] - want["log_post"])
+                     <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
+
+
 def test_truncated_auto_run_launches_k4_once(dev):
     """MCMC.run(engine="auto") on a box-truncated smoother: engine
     fused_gmrf_smoother_truncated, one K4 launch, every draw in the box."""
@@ -267,6 +321,26 @@ def test_linreg_kernel_matches_plain(dev, p, a_lam):
     torch.cuda.synchronize()
     assert linreg.linreg_sweeps_kernel.launches == before + 1
     assert tuple(got["beta"].shape) == (200, 6, p)
+    _assert_kernel_matches_plain(got, want)
+
+
+def test_linreg_kernel_warm_rows_match_plain(dev):
+    """K6 started from per-chain (lam, tau) rows, as a resume starts it (no
+    burn-in), against its plain version: p 7, 200 chains, n_keep 6."""
+    from openmcmc_tpu_torch.fused import linreg
+
+    p = 7
+    X, y, extra = _linreg_problem(dev, 60, p, p)
+    f32 = dict(dtype=torch.float32, device=dev)
+    G, c, scal = linreg.sufficient_statistics(torch.as_tensor(X, **f32), torch.as_tensor(y, **f32),
+                                              torch.as_tensor(extra["plam_diag"], **f32),
+                                              torch.as_tensor(extra["ptau_diag"], **f32))
+    args = [G, c, torch.as_tensor(extra["plam_diag"], **f32), torch.as_tensor(extra["mu"], **f32), scal,
+            *_warm_rows(dev, 200, 7)]
+    kw = dict(n_obs=60.0, a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=0, n_keep=6, n_thin=1)
+    got = linreg.linreg_sweeps(5, *args, **kw)
+    want = linreg.linreg_sweeps_plain(5, *args, **kw)
+    torch.cuda.synchronize()
     _assert_kernel_matches_plain(got, want)
 
 
@@ -527,3 +601,20 @@ def test_rj_auto_run_launches_k11_once(dev):
     assert res.engine == "fused_rj" and rj.rj_sweeps_kernel.launches == before + 1
     assert res.store["n_basis"].dtype == torch.int32 and res.store["n_basis"].device.type == "cuda"
     assert res.store["tau_y"].shape == (256, 50, 1, 1) and bool(torch.all(res.store["tau_y"] > 0.0))
+
+
+@pytest.mark.parametrize("shape", [(1,), (4099,), (257, 1024)], ids=["one", "ragged", "2d"])
+def test_gamma_kernel_matches_plain(dev, shape):
+    """K12 against its plain version on the same Philox bits, shapes a in
+    {0.3, 0.5, 1, 2.5, 10, 50.5, 500} tiled over any shape; one launch."""
+    from openmcmc_tpu_torch.linalg import gamma
+
+    n = int(np.prod(shape))
+    a = torch.tensor([0.3, 0.5, 1.0, 2.5, 10.0, 50.5, 500.0]).repeat(n // 7 + 1)[:n].reshape(shape).to(dev)
+    before = gamma.gamma_kernel.launches
+    got = gamma.gamma(3, a)
+    want = gamma.gamma_plain(3, a)
+    torch.cuda.synchronize()
+    assert gamma.gamma_kernel.launches == before + 1
+    assert got.shape == a.shape and bool(torch.all(got > 0))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

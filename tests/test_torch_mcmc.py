@@ -155,17 +155,19 @@ def test_rhat_and_summary_match_jax():
 
 def test_unported_routes_raise():
     """run() runs the generic driver; "auto" without a matching engine falls back
-    to it, as in the JAX package; "fused" without a match and resume still raise;
-    a truncated latent prior now dispatches to the Thomas kernel K4's truncated
-    variant, as in the JAX package."""
+    to it, as in the JAX package; "fused" without a match raises; a resume
+    continues the chains in the generic driver; a truncated latent prior now
+    dispatches to the Thomas kernel K4's truncated variant, as in the JAX
+    package."""
     from openmcmc_tpu_torch.convert import state_from_reference
     from openmcmc_tpu_torch.distributions import Normal
 
     mcmc = build("openmcmc_tpu_torch", state_from_reference(reference_state(), device="cpu"), 1, None, None,
                  device="cpu")
-    assert mcmc.run().engine == "generic"
-    with pytest.raises(NotImplementedError, match="resume"):
-        mcmc.run(engine="auto", resume=object())
+    first = mcmc.run()
+    assert first.engine == "generic"
+    resumed = mcmc.run(resume=first)
+    assert resumed.engine == "generic" and resumed.final_key not in (first.final_key, mcmc.seed)
     with pytest.raises(ValueError, match="bit_source"):
         mcmc.run(bit_source=lambda *a: None)
     from openmcmc_tpu_torch.linalg import structured as st

@@ -461,7 +461,8 @@ def _dispatch_cases():
 def test_dispatch_matches_jax():
     """(f) match_fused_engine in both packages picks the same engine or none on
     every route, with the same store keys; the port's runner returns the JAX
-    shapes and statistics, and run(resume=...) and malformed kernel inputs raise."""
+    shapes and statistics, run(resume=...) continues the chains with the
+    counters accumulated, and malformed kernel inputs raise."""
     from openmcmc_tpu.fused.dispatch import match_fused_engine as jmatch
     from openmcmc_tpu_torch.fused.dispatch import match_fused_engine as tmatch
 
@@ -498,8 +499,8 @@ def test_dispatch_matches_jax():
         assert set(res.acceptance) == {"beta", "theta", "omega", "n_basis"}
         if lik:
             assert res.stats["tau_y"] == {} and res.store["tau_y"].shape == (8, 3, 1, 1)
-    with pytest.raises(NotImplementedError, match="operations"):
-        rj_mcmc(PKGS[1]).run(engine="auto", resume=res)
+    resumed = m.run(engine="auto", resume=res)
+    assert resumed.engine == "fused_rj" and resumed.stats["beta"]["proposal"].tolist() == [8] * 8
     config = trj.make_config(4, 8, n_chains=2)
     with pytest.raises(ValueError, match="init"):
         trj.rj_sweeps(torch.zeros(8), torch.zeros((2, 5)), 2, config=config)
