@@ -79,7 +79,10 @@ launch of the reversible-jump kernel (K11), that kernel held against its plain
 version on every chain of a 5-sweep run at full width with the parameters
 streamed, and a generic twin (the port's ManifoldMALA, RandomWalkLoop,
 ReversibleJump and NormalGamma, no kernel); before them ``rj_small`` holds K11
-against its plain version on both variants at n_max 2 to 32, n_data 7 to 200:
+against its plain version on both variants at n_max 2 to 32, n_data 7 to 1000,
+and at full width (n_max 20, n_data 50, 2048 chains) from warm rows whose counts
+spread over 1..20. Each cell's main path runs three times (the same draws), and
+K11's time is the median of the three:
 
 - ``rj``: bench_all.py's reversible_jump (the prior-recovery configuration:
   Null likelihood, n_max 20, 50 points, rho 8, 2048 chains, 5000 stored
@@ -172,6 +175,8 @@ X_GEN_BURN, X_GEN_ITER, XL_GEN_BURN, XL_GEN_ITER = 200, 400, 50, 75
 J_MAX, J_N, J_CHAINS, J_ITER, J_GEN_CHAINS = 20, 50, 2048, 5000, 256
 J_GEN_BURN, J_GEN_ITER = 100, 400  # rj's twin
 JR_GEN_BURN, JR_GEN_ITER, JR_SKIP = 200, 300, 1000  # rj_regression's twin; the fused draws it skips
+J_RUNS = 3  # main-path runs of each reversible-jump cell; K11's time is their median
+J_PER_K, J_PER_K_SWEEPS = (2, 8, 16), 20  # K11's time per sweep from a fixed count
 # H100 SXM data sheet: HBM bandwidth and the float32 rate outside the tensor cores
 # (TF32 is excluded: the port keeps full float32, ROADMAP.md's invariant)
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
@@ -342,7 +347,7 @@ def build_phase():
     _build.library()
     log("build", f"nvcc {built.seconds:.1f} s, {built.path.name}")
     for ln in built.log.splitlines():
-        if "registers" in ln or "Compiling entry" in ln:
+        if "registers" in ln or "Compiling entry" in ln or "spill" in ln:
             log("build", ln.strip())
 
 
@@ -1660,6 +1665,29 @@ def calls_of(module, name):
         setattr(module, name, real)
 
 
+@contextlib.contextmanager
+def launch_events(module, name):
+    """CUDA events recorded on the current stream just before and just after
+    every call of ``module.name``, a kernel's routing function, while the body
+    runs, as (start, stop) pairs: each launch's device time once the body has
+    synchronised (the counted kernel wrapper below it is untouched)."""
+    real, marks = getattr(module, name), []
+
+    def timed(*args, **kw):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        stop.record()
+        marks.append((start, stop))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield marks
+    finally:
+        setattr(module, name, real)
+
+
 def warm_rows_agree(tag, kernel_fn, plain_fn, call, rows, draw="b", exact=False, **override):
     """The kernel against its plain version on the inputs a resume built:
     ``call`` is the (args, kw) the runner passed the routing function, ``rows``
@@ -2141,15 +2169,20 @@ def rj_inputs(mcmc, dev, n_burn, n_keep, stream):
 def rj_small_phase(dev):
     """K11 against its plain version on the same Philox bits, every stored row of
     every chain: both variants at the CUDA tests' shapes (n_max 2 to 32, n_data 7
-    to 200, 37 and 1000 chains, n_thin 1 and 2, broadcast and per-chain warm
-    initial rows), n_burn 2, n_keep 3, parameters streamed."""
+    to 1000, 37 to 2048 chains, n_thin 1 and 2, broadcast and per-chain warm
+    initial rows), n_burn 2, n_keep 3, parameters streamed. The full-width cases
+    (n_max 20, n_data 50, 2048 chains, warm counts spread over 1..20) give the
+    kernel's active-size loops every count, k = n_max and k = 1 included."""
     from openmcmc_tpu_torch.fused import rj
 
     worst = 0.0
     for lik, p, n, chains, n_thin, warm in ((False, 2, 7, 37, 1, False), (False, 8, 50, 1000, 2, True),
                                             (False, 20, 200, 37, 1, False), (False, 32, 50, 37, 2, True),
                                             (True, 2, 50, 1000, 1, True), (True, 8, 7, 37, 2, False),
-                                            (True, 20, 50, 37, 1, True), (True, 32, 200, 37, 2, False)):
+                                            (True, 20, 50, 37, 1, True), (True, 32, 200, 37, 2, False),
+                                            (False, J_MAX, J_N, J_CHAINS, 1, True),
+                                            (True, J_MAX, J_N, J_CHAINS, 1, True),
+                                            (False, 32, 1000, 37, 2, True), (True, 32, 1000, 37, 1, True)):
         rng = np.random.default_rng(p * 1000 + n)
         X = np.sort(rng.uniform(-10, 10, n))
         y = np.sin(X) + 0.1 * rng.normal(size=n) if lik else None
@@ -2193,8 +2226,11 @@ def rj_marginal():
 
 def rj_phase(dev, smi, lik):
     """One reversible-jump cell: MCMC.run(engine="auto") with one K11 launch and
-    no other, K11 against its plain version on a 5-sweep full-width streamed
-    run, the statistical checks, the generic twin and the times."""
+    no other, J_RUNS times (the same draws each time; K11's time is the median
+    of the runs', each from CUDA events around its launch; the first run also
+    under the profiler, for the device's idle share), K11 against its plain
+    version on a 5-sweep full-width streamed run, the statistical checks, the
+    generic twin and the times."""
     from torch.profiler import ProfilerActivity, profile
 
     from openmcmc_tpu_torch.diagnostics import ess_per_param
@@ -2205,22 +2241,34 @@ def rj_phase(dev, smi, lik):
     n_chains, n_iter = mcmc.n_chains, mcmc.n_iter
     if mcmc.n_burn != 0 or mcmc.n_thin != 1:
         raise AssertionError(f"{kind}: the bound reads every sweep's count from the store (0 burn-in, no thinning)")
-    reset_launches()
-    torch.cuda.synchronize()
-    # the main path's run under a device-only trace: its K11 launch's device time
-    # is the kernel time, and the same run's wall clock the end-to-end time
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = mcmc.run(engine="auto")
+    # the main path's runs: K11's device time from CUDA events around its launch,
+    # the run's wall clock the end-to-end time; the first run also under a
+    # device-only trace for the device's busy time (on the card such a trace has
+    # lost the kernel's record of a repeated run, so no check depends on it)
+    runs = []
+    for rep in range(J_RUNS):
+        reset_launches()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = read_launches()
-    busy_us, k11_us, _ = device_times_us(prof, "rj_kernel")
-    if not k11_us > 0:
-        raise AssertionError(f"{kind}: the profiler reported no device time for K11 in the main path's run")
-    run_ms = k11_us / 1e3
-    if res.engine != "fused_rj" or launches != only("rj", 1):
-        raise AssertionError(f"{kind}: engine {res.engine}, kernel launches {launches}")
+        tracing = profile(activities=[ProfilerActivity.CUDA]) if rep == 0 else contextlib.nullcontext()
+        with launch_events(rj, "rj_sweeps") as marks, tracing as prof:
+            t0 = time.perf_counter()
+            out = mcmc.run(engine="auto")
+            torch.cuda.synchronize()
+            wall_r = time.perf_counter() - t0
+        launches_r = read_launches()
+        if out.engine != "fused_rj" or launches_r != only("rj", 1) or len(marks) != 1:
+            raise AssertionError(f"{kind}: engine {out.engine}, kernel launches {launches_r}")
+        runs.append(marks[0][0].elapsed_time(marks[0][1]))
+        if rep == 0:
+            res, launches, wall = out, launches_r, wall_r
+            busy_us, prof_us, _ = device_times_us(prof, "rj_kernel")
+        elif not torch.equal(out.store["n_basis"], res.store["n_basis"]):
+            raise AssertionError(f"{kind}: main-path run {rep} drew other counts than the first")
+        del out
+    run_ms = statistics.median(runs)
+    traced = (f"the profiler's K11 {prof_us / 1e3:.3f} ms of the first run, device busy {busy_us / 1e3:.3f} ms, "
+              f"idle {100 * (1 - busy_us / (1e6 * wall)):.2f} %" if prof_us > 0 else
+              "the profiler's trace of the first run lost K11's record: idle share not measured")
     nb = res.store["n_basis"]
     if tuple(nb.shape) != (n_chains, n_iter, 1, 1) or nb.dtype != torch.int32 or nb.device.type != DEVICE_TYPE:
         raise AssertionError(f"{kind}: store n_basis {tuple(nb.shape)} {nb.dtype} on {nb.device}")
@@ -2250,7 +2298,8 @@ def rj_phase(dev, smi, lik):
                f"sd {sd:.4f} ({exact_sd:.4f}, bound 0.35)")
     log(kind, f"MCMC.run(engine='auto'): engine {res.engine}, kernel launches {launches}, n_basis "
         f"{tuple(nb.shape)} int32, first run {wall:.3f} s; {msg}; acceptance % {acc}; ESS of n_basis {ess:.1f} over "
-        f"{n_chains * n_iter} draws; mean count at a sweep's start {float(k_start.double().mean()):.4f}")
+        f"{n_chains * n_iter} draws; mean count at a sweep's start {float(k_start.double().mean()):.4f}; "
+        f"{J_RUNS} runs, one K11 launch each, the same counts")
     del res, nb, k
     torch.cuda.empty_cache()
 
@@ -2267,6 +2316,7 @@ def rj_phase(dev, smi, lik):
     k5_accepts = float(got[:, -1, 2:5].double().sum())  # the counters start at zero
     k5_bytes = 4 * (data.numel() + rows.numel() + got.numel())
     del got, want
+    per_k = rj_sweep_by_count(mcmc, dev, lik)
 
     if lik:
         sm = rj_mcmc(dev, lik, n_iter=20, store_names=("n_basis", "beta", "theta", "omega", "tau_y"))
@@ -2290,6 +2340,62 @@ def rj_phase(dev, smi, lik):
             f"{worst_lp:.3g} (relative) of Model.log_p at the stored draws of 3 chains x 3 draws (limit 1e-4)")
         del res, sm
 
+    gen_note = rj_twin(dev, lik, fused if lik else (exact_mean, exact_sd))
+    log(kind, f"kernel and plain version equal on all {agree} chains over 5 sweeps, parameters streamed (max abs err "
+        f"{err:.3g}); {gen_note}")
+
+    data, rows, config = rj_inputs(mcmc, dev, mcmc.n_burn, n_iter, False)  # the main run's sizes; no launch
+    run_bytes = 4 * (data.numel() + rows.numel() + n_chains * n_iter * config.prm.n_rows)
+    run_flop = rj_flop(k_start, J_MAX, J_N, lik, run_accepts)
+    run_bound = (*bound(run_bytes, run_flop), run_flop, run_bytes)
+    n_flop = rj_flop(k5_start, J_MAX, J_N, lik, k5_accepts)
+    bound_ms, bound_by = bound(k5_bytes, n_flop)
+    log(kind, f"{smi}: the main path's run: K11 {run_ms:.3f} ms of device time (CUDA events, median of {J_RUNS} "
+        f"runs: {', '.join(f'{t:.3f}' for t in runs)}), bound {run_bound[0]:.4f} ms "
+        f"({run_bound[1]}: {run_bound[2]:.4g} FLOP at the run's counts, {run_bound[3]:.4g} B), "
+        f"{run_ms / run_bound[0]:.1f}x; MCMC.run end to end {1e3 * wall:.3f} ms (first run); {traced}")
+    log(kind, f"{smi}: 5 sweeps: kernel {ms:.4f} ms (median of 3), plain {plain_ms:.1f} ms (the check's call), bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {n_flop:.4g} FLOP, {k5_bytes:.4g} B)")
+    log(kind, f"{smi}: K11 per sweep from a fixed count k over {J_PER_K_SWEEPS} sweeps (CUDA events, median of 3): "
+        + ", ".join(f"k {k}: {us:.1f} us" for k, us in per_k.items()))
+    log(kind, f"{smi}: ESS/s of n_basis {ess / (run_ms / 1e3):.4g} on kernel time, {ess / wall:.4g} end to end")
+    return {"launches": launches["rj"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "run_ms": run_ms, "run_ms_all": runs,
+            "run_ms_profiler": prof_us / 1e3 if prof_us > 0 else None, "us_per_sweep_by_k": per_k,
+            "run_bound_ms": run_bound[0], "run_bound_by": run_bound[1], "run_e2e_ms": 1e3 * wall,
+            "ess_per_s": ess / (run_ms / 1e3), **summary}
+
+
+def rj_sweep_by_count(mcmc, dev, lik):
+    """K11's time per sweep (microseconds) on the cell's data and chains when
+    every chain starts from count k (random active coefficients, knots and
+    widths, padded entries 0), over J_PER_K_SWEEPS sweeps: the part of a sweep
+    that does not grow with k against the part that does."""
+    from openmcmc_tpu_torch.fused import rj
+
+    data, n_chains, rng, out = mcmc.data, mcmc.n_chains, np.random.default_rng(1), {}
+    extra = dict(y=data["y"], a_tau=2.0, b_tau=0.01) if lik else {}
+    for k in J_PER_K:
+        act = np.arange(J_MAX)[None, :] < k
+        init = {"beta": rng.normal(size=(n_chains, J_MAX)) * act, "theta": rng.uniform(-10, 10, (n_chains, J_MAX)) * act,
+                "omega": rng.uniform(0.5, 2.0, (n_chains, J_MAX)) * act, "k": np.full(n_chains, k),
+                "tau": np.full(n_chains, 100.0)}
+        zeros = np.zeros(J_MAX)
+        inputs, rows, config = rj.prepare(mcmc.seed, data["X"], 0, J_PER_K_SWEEPS, n_chains, J_MAX, zeros, zeros,
+                                          zeros, k, init=init, device=dev, **extra)
+        ms = cuda_ms(lambda: rj.rj_sweeps_kernel(inputs, rows, n_chains, config=config), 3)
+        out[k] = 1e3 * ms / J_PER_K_SWEEPS
+    return out
+
+
+def rj_twin(dev, lik, target):
+    """The reversible-jump cell's generic twin (J_GEN_CHAINS chains, no kernel):
+    its posterior means of n_basis and tau_y against the fused run's ``target``
+    moments (rj_regression), or its count mean against the truncated Poisson(8)
+    ``target`` (mean, sd) (rj), within 5 Monte Carlo sd."""
+    from openmcmc_tpu_torch.diagnostics import ess_per_param
+
+    kind = "rj_regression" if lik else "rj"
     gen = rj_mcmc(dev, lik, n_chains=J_GEN_CHAINS, n_burn=JR_GEN_BURN if lik else J_GEN_BURN,
                   n_iter=JR_GEN_ITER if lik else J_GEN_ITER, store_names=("n_basis", "tau_y") if lik else ("n_basis",))
     reset_launches()
@@ -2302,9 +2408,10 @@ def rj_phase(dev, smi, lik):
     gk = gen_res.store["n_basis"][..., 0, 0].to(torch.float32)
     if lik:
         twin = moments({"n_basis": gk[..., None], "tau_y": gen_res.store["tau_y"][..., 0, :]}, 8)
-        zs = moments_z(fused, twin)
+        zs = moments_z(target, twin)
         what = "posterior means of n_basis and tau_y"
     else:
+        exact_mean, exact_sd = target
         gmean, gess = float(gk.double().mean()), float(ess_per_param(gk[..., None], chunk_size=8)[0])
         zs = abs(gmean - exact_mean) / (exact_sd / np.sqrt(gess))
         what = f"count mean {gmean:.4f} (ESS {gess:.1f}) against the truncated Poisson(8)"
@@ -2312,26 +2419,8 @@ def rj_phase(dev, smi, lik):
     torch.cuda.empty_cache()
     if not zs < 5.0:
         raise AssertionError(f"{kind}: generic twin's {what} off by {zs:.2f} MC sd")
-    log(kind, f"kernel and plain version equal on all {agree} chains over 5 sweeps, parameters streamed (max abs err "
-        f"{err:.3g}); generic twin ({gen.n_chains} chains, {gen.n_burn} + {gen.n_iter} sweeps, {gen_wall:.3f} s): "
-        f"{what} within {zs:.2f} MC sd (limit 5)")
-
-    data, rows, config = rj_inputs(mcmc, dev, mcmc.n_burn, n_iter, False)  # the main run's sizes; no launch
-    run_bytes = 4 * (data.numel() + rows.numel() + n_chains * n_iter * config.prm.n_rows)
-    run_flop = rj_flop(k_start, J_MAX, J_N, lik, run_accepts)
-    run_bound = (*bound(run_bytes, run_flop), run_flop, run_bytes)
-    n_flop = rj_flop(k5_start, J_MAX, J_N, lik, k5_accepts)
-    bound_ms, bound_by = bound(k5_bytes, n_flop)
-    log(kind, f"{smi}: the main path's run: K11 {run_ms:.3f} ms of device time (profiler), bound {run_bound[0]:.4f} ms "
-        f"({run_bound[1]}: {run_bound[2]:.4g} FLOP at the run's counts, {run_bound[3]:.4g} B), "
-        f"{run_ms / run_bound[0]:.1f}x; MCMC.run end to end {1e3 * wall:.3f} ms under the trace, device busy "
-        f"{busy_us / 1e3:.3f} ms, idle {100 * (1 - busy_us / (1e6 * wall)):.2f} %")
-    log(kind, f"{smi}: 5 sweeps: kernel {ms:.4f} ms (median of 3), plain {plain_ms:.1f} ms (the check's call), bound "
-        f"{bound_ms:.5f} ms ({bound_by}: {n_flop:.4g} FLOP, {k5_bytes:.4g} B)")
-    log(kind, f"{smi}: ESS/s of n_basis {ess / (run_ms / 1e3):.4g} on kernel time, {ess / wall:.4g} end to end")
-    return {"launches": launches["rj"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "run_ms": run_ms, "run_bound_ms": run_bound[0],
-            "run_bound_by": run_bound[1], "run_e2e_ms": 1e3 * wall, "ess_per_s": ess / (run_ms / 1e3), **summary}
+    return (f"generic twin ({gen.n_chains} chains, {gen.n_burn} + {gen.n_iter} sweeps, {gen_wall:.3f} s): {what} "
+            f"within {zs:.2f} MC sd (limit 5)")
 
 
 def main():

@@ -14,19 +14,27 @@
 // element j; round r reads u1 at site 3r, u2 at 3r + 1, u at 3r + 2, and the
 // boost reads site 18. The stream does not depend on the launch geometry.
 //
-// Design: one thread per group of four elements, so one Philox call per site
-// serves all four; a grid-stride loop covers any n. Nothing is shared between
-// threads. Built with --fmad=false like the other sources, so each product and
-// sum rounds as the plain version's separate PyTorch operations do.
+// What bounds it on an H100: issuing instructions. A draw moves 8 bytes (a in,
+// the draw out; 0.040 ms at 2^24 draws) but needs a Philox share, the shape's
+// set-up and a Marsaglia-Tsang round of three accurate logf, a sqrtf and a cosf,
+// a few hundred instructions. The accurate functions stay: gamma_plain follows
+// the kernel bit for bit, and fast intrinsics would move its decisions.
 //
-// What bounds it: 8 bytes per draw (a in, the draw out) against the float32
-// operations the draw needs: the set-up, about 1.02 rounds of 35 to the first
-// acceptance (a boosted shape of at least 1 accepts a round with probability
-// above 0.95) and the boost's powf where a < 1, about 45 in all; so at 2^24
-// draws 0.040 ms by bytes (chip_smoke.py counts the rounds from the run's
-// bits). The kernel runs all six rounds for every draw, as the TPU kernel does,
-// and draws their 18 Philox blocks: five rounds of that work cannot change the
-// draw, and an early exit per element would leave the output bit-identical.
+// Design: a draw's value is fixed by its first accepted round, and a boosted
+// shape of at least 1 accepts round 0 with probability above 0.95, so the
+// kernel draws only what some output reads. A block takes tiles of kTile
+// elements, one group of four per thread (one Philox call per site serves all
+// four), in a grid-stride loop over the tiles:
+//   1. every group runs round 0 from its sites 0, 1 and 2, and writes the draws
+//      that accepted, with the boost block (site 18) drawn only where such a
+//      draw has a < 1;
+//   2. a draw that missed round 0 goes into the block's queue in shared memory,
+//      sized for the whole tile, so no draw is ever dropped;
+//   3. the block's threads take the queued draws one a thread through rounds
+//      1 to 5, each from its own group's Philox blocks and word, stopping at
+//      the first accepted round, and write them.
+// Built with --fmad=false like the other sources, so each product and sum
+// rounds as the plain version's separate PyTorch operations do.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,59 +42,127 @@
 
 static constexpr int kRounds = 6;
 static constexpr int kThreads = 256;
+static constexpr int kTile = 4 * kThreads;
 static constexpr int kMaxBlocks = 132 * 16;
 
-__global__ void gamma_kernel(uint32_t seed, long long n, const float* __restrict__ a, float* __restrict__ out) {
-  const long long groups = (n + 3) / 4;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < groups;
-       g += (long long)gridDim.x * blockDim.x) {
+// d and c of the (boosted) Marsaglia-Tsang shape.
+__device__ __forceinline__ void mt_shape(float a, float& d, float& c) {
+  const float a_eff = a < 1.0f ? a + 1.0f : a;
+  d = a_eff - (1.0f / 3.0f);
+  c = 1.0f / sqrtf(9.0f * d);
+}
+
+// One Marsaglia-Tsang round on its three sites' words; an accepted round sets
+// value to d v.
+__device__ __forceinline__ bool mt_round(float d, float c, uint32_t w1, uint32_t w2, uint32_t w3, float& value) {
+  const float u1 = uniform_from_bits(w1);
+  const float u2 = uniform_from_bits(w2);
+  const float x = sqrtf(-2.0f * logf(u1)) * cosf(6.28318530717958648f * u2);
+  const float t = 1.0f + c * x;
+  const float v = t * (t * t);
+  const float u = uniform_from_bits(w3);
+  const float rhs = 0.5f * x * x + d - d * v + d * logf(v > 0.0f ? v : 1.0f);
+  const bool ok = v > 0.0f && logf(u) < rhs;
+  if (ok) value = d * v;
+  return ok;
+}
+
+// Word w of a Philox block, by selects (an indexed struct would live in local memory).
+__device__ __forceinline__ uint32_t word(const Philox4& b, uint32_t w) {
+  return w == 0u ? b.x[0] : w == 1u ? b.x[1] : w == 2u ? b.x[2] : b.x[3];
+}
+
+// The boost of a shape a < 1 by the uniform of site 18.
+__device__ __forceinline__ float boosted(float value, float a, uint32_t w) {
+  return value * powf(uniform_from_bits(w), 1.0f / a);
+}
+
+__global__ void __launch_bounds__(kThreads) gamma_kernel(uint32_t seed, long long n, const float* __restrict__ a,
+                                                          float* __restrict__ out) {
+  __shared__ int queue[kTile];  // tile offsets of the draws that missed round 0
+  __shared__ int queued;
+  const long long tiles = (n + kTile - 1) / kTile;
+  const bool vec = (((uintptr_t)a | (uintptr_t)out) & 15u) == 0;  // 16-byte loads and stores
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    if (threadIdx.x == 0) queued = 0;
+    __syncthreads();
+    const long long g = tile * kThreads + threadIdx.x;  // this thread's group of four
     const long long base = 4 * g;
-    float av[4], d[4], c[4], value[4];
-    bool boost[4], accepted[4];
+    if (base < n) {
+      const bool full = base + 4 <= n;
+      float av[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+      if (full && vec) {
+        const float4 q = *reinterpret_cast<const float4*>(a + base);
+        av[0] = q.x;
+        av[1] = q.y;
+        av[2] = q.z;
+        av[3] = q.w;
+      } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      av[e] = base + e < n ? a[base + e] : 1.0f;
-      boost[e] = av[e] < 1.0f;
-      const float a_eff = boost[e] ? av[e] + 1.0f : av[e];
-      d[e] = a_eff - (1.0f / 3.0f);
-      c[e] = 1.0f / sqrtf(9.0f * d[e]);
-      value[e] = d[e];
-      accepted[e] = false;
-    }
-    const uint32_t j4 = (uint32_t)g;
-#pragma unroll 1
-    for (int r = 0; r < kRounds; ++r) {
-      const Philox4 b1 = site_block(seed, 0u, 0u, (uint32_t)(3 * r), j4);
-      const Philox4 b2 = site_block(seed, 0u, 0u, (uint32_t)(3 * r + 1), j4);
-      const Philox4 b3 = site_block(seed, 0u, 0u, (uint32_t)(3 * r + 2), j4);
+        for (int e = 0; e < 4; ++e) av[e] = base + e < n ? a[base + e] : 1.0f;
+      }
+      const uint32_t j4 = (uint32_t)g;
+      const Philox4 b1 = site_block(seed, 0u, 0u, 0u, j4);
+      const Philox4 b2 = site_block(seed, 0u, 0u, 1u, j4);
+      const Philox4 b3 = site_block(seed, 0u, 0u, 2u, j4);
+      float value[4];
+      bool ok[4], need_boost = false;
+      int missed = 0;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float u1 = uniform_from_bits(b1.x[e]);
-        const float u2 = uniform_from_bits(b2.x[e]);
-        const float x = sqrtf(-2.0f * logf(u1)) * cosf(6.28318530717958648f * u2);
-        const float t = 1.0f + c[e] * x;
-        const float v = t * (t * t);
-        const float u = uniform_from_bits(b3.x[e]);
-        const float rhs = 0.5f * x * x + d[e] - d[e] * v + d[e] * logf(v > 0.0f ? v : 1.0f);
-        const bool ok = v > 0.0f && logf(u) < rhs;
-        if (ok && !accepted[e]) value[e] = d[e] * v;
-        accepted[e] = accepted[e] || ok;
+        float d, c;
+        mt_shape(av[e], d, c);
+        value[e] = d;
+        ok[e] = mt_round(d, c, b1.x[e], b2.x[e], b3.x[e], value[e]) && base + e < n;
+        need_boost = need_boost || (ok[e] && av[e] < 1.0f);
+        missed += (!ok[e] && base + e < n) ? 1 : 0;
+      }
+      if (need_boost) {
+        const Philox4 bb = site_block(seed, 0u, 0u, (uint32_t)(3 * kRounds), j4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (ok[e] && av[e] < 1.0f) value[e] = boosted(value[e], av[e], bb.x[e]);
+        }
+      }
+      if (missed == 0 && full && vec) {
+        *reinterpret_cast<float4*>(out + base) = make_float4(value[0], value[1], value[2], value[3]);
+      } else {
+        int slot = missed > 0 ? atomicAdd(&queued, missed) : 0;
+        const int offset = 4 * threadIdx.x;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (base + e >= n) continue;
+          if (ok[e]) out[base + e] = value[e];
+          else queue[slot++] = offset + e;
+        }
       }
     }
-    const Philox4 bb = site_block(seed, 0u, 0u, (uint32_t)(3 * kRounds), j4);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (base + e >= n) continue;
-      float v = value[e];
-      if (boost[e]) v = v * powf(uniform_from_bits(bb.x[e]), 1.0f / av[e]);
-      out[base + e] = v;
+    __syncthreads();
+    const int count = queued;
+    for (int i = threadIdx.x; i < count; i += kThreads) {
+      const long long j = tile * kTile + queue[i];
+      const uint32_t j4 = (uint32_t)(j / 4), w = (uint32_t)(j % 4);
+      const float aj = a[j];
+      float d, c;
+      mt_shape(aj, d, c);
+      float value = d;
+#pragma unroll 1
+      for (int r = 1; r < kRounds; ++r) {
+        const uint32_t w1 = word(site_block(seed, 0u, 0u, (uint32_t)(3 * r), j4), w);
+        const uint32_t w2 = word(site_block(seed, 0u, 0u, (uint32_t)(3 * r + 1), j4), w);
+        const uint32_t w3 = word(site_block(seed, 0u, 0u, (uint32_t)(3 * r + 2), j4), w);
+        if (mt_round(d, c, w1, w2, w3, value)) break;
+      }
+      if (aj < 1.0f) value = boosted(value, aj, word(site_block(seed, 0u, 0u, (uint32_t)(3 * kRounds), j4), w));
+      out[j] = value;
     }
+    __syncthreads();  // the queue is reused by the next tile
   }
 }
 
 extern "C" int gamma_launch(uint32_t seed, long long n, const float* a, float* out, cudaStream_t stream) {
-  const long long groups = (n + 3) / 4;
-  long long blocks = (groups + kThreads - 1) / kThreads;
+  const long long tiles = (n + kTile - 1) / kTile;
+  long long blocks = tiles;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
   gamma_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(seed, n, a, out);

@@ -94,17 +94,18 @@ struct GammaSpec {
   int32_t elem;   // element of the site's Philox block (0 lam, 1 tau jointly)
 };
 
-__device__ __forceinline__ float gamma_draw(const GammaSpec& g, float rate, uint32_t seed,
-                                            uint32_t chain, uint32_t sweep) {
+// The draw on the words of its sites: word(site) is element g.elem's Philox
+// word of that site (gamma_draw reads them from Philox; a caller that holds them
+// already passes them in).
+template <class Word>
+__device__ __forceinline__ float gamma_from_words(const GammaSpec& g, float rate, Word word) {
   const float d = g.d, c = g.c;
   float value = d;
   for (int r = 0; r < g.rounds; ++r) {
-    Philox4 nb = site_block(seed, chain, sweep, (uint32_t)(g.site0 + 2 * r), 0u);
-    Philox4 ub = site_block(seed, chain, sweep, (uint32_t)(g.site0 + 2 * r + 1), 0u);
-    float x = normal_icdf_from_bits(nb.x[g.elem]);
+    float x = normal_icdf_from_bits(word(g.site0 + 2 * r));
     float t = 1.0f + c * x;
     float v = t * (t * t);
-    float u = uniform_from_bits(ub.x[g.elem]);
+    float u = uniform_from_bits(word(g.site0 + 2 * r + 1));
     bool ok = v > 0.0f &&
               logf(u) < 0.5f * x * x + d - d * v + d * logf(v > 0.0f ? v : 1.0f);
     if (ok) {
@@ -113,11 +114,15 @@ __device__ __forceinline__ float gamma_draw(const GammaSpec& g, float rate, uint
     }
   }
   if (g.boost) {
-    Philox4 ub = site_block(seed, chain, sweep, (uint32_t)(g.site0 + 2 * g.rounds), 0u);
-    float u = uniform_from_bits(ub.x[g.elem]);
+    float u = uniform_from_bits(word(g.site0 + 2 * g.rounds));
     return value / 1.0f * expf(logf(u) / g.a) / rate;
   }
   return value / rate;
+}
+
+__device__ __forceinline__ float gamma_draw(const GammaSpec& g, float rate, uint32_t seed,
+                                            uint32_t chain, uint32_t sweep) {
+  return gamma_from_words(g, rate, [&](int site) { return site_block(seed, chain, sweep, (uint32_t)site, 0u).x[g.elem]; });
 }
 
 // Marsaglia-Tsang Gamma(a_star) / rate with an elementwise shape a_star >= 1

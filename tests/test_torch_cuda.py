@@ -526,15 +526,19 @@ def _rj_inputs(dev, lik, p, n_data, n_chains, warm, seed=0):
     (False, 2, 7, 37, 1, False), (False, 8, 50, 1000, 2, True), (False, 20, 200, 37, 1, False),
     (False, 32, 50, 37, 2, True), (True, 2, 50, 1000, 1, True), (True, 8, 7, 37, 2, False),
     (True, 20, 50, 37, 1, True), (True, 32, 200, 37, 2, False),
+    (False, 20, 50, 2048, 1, True), (True, 20, 50, 2048, 1, True), (True, 32, 1000, 37, 1, True),
 ], ids=["null_p2_n7", "null_p8_n50_warm", "null_p20_n200", "null_p32_n50_warm", "lik_p2_n50_warm", "lik_p8_n7",
-        "lik_p20_n50_warm", "lik_p32_n200"])
+        "lik_p20_n50_warm", "lik_p32_n200", "null_full_width_warm", "lik_full_width_warm", "lik_p32_n1000_warm"])
 def test_rj_kernel_matches_plain(dev, lik, p, n_data, n_chains, n_thin, warm):
     """K11 against its plain version on the same Philox bits, parameters
-    streamed: both variants, n_max 2 to 32 (a full warp), n_data 7 to 200, 37
-    and 1000 chains, n_thin 1 and 2, broadcast and per-chain warm initial rows,
-    n_burn 2, n_keep 3. The kernel adds every sum in the plain version's order
-    and rounds like it (--fmad=false), so every stored row is equal: the counts,
-    counters and accepts, and the values bit for bit."""
+    streamed: both variants, n_max 2 to 32 (a full warp), n_data 7 to 1000,
+    37 to 2048 chains, n_thin 1 and 2, broadcast and per-chain warm initial
+    rows, n_burn 2, n_keep 3. The full-width cases (n_max 20, n_data 50, 2048
+    chains, warm counts spread over 1..20) give the kernel's active-size loops
+    every count, k = n_max (no birth) and k = 1 (no death) included.
+    The kernel adds every sum in the plain version's order and rounds like it
+    (--fmad=false), so every stored row is equal: the counts, counters and
+    accepts, and the values bit for bit."""
     from openmcmc_tpu_torch.fused import rj
 
     data, rows = _rj_inputs(dev, lik, p, n_data, n_chains, warm)
@@ -603,18 +607,28 @@ def test_rj_auto_run_launches_k11_once(dev):
     assert res.store["tau_y"].shape == (256, 50, 1, 1) and bool(torch.all(res.store["tau_y"] > 0.0))
 
 
-@pytest.mark.parametrize("shape", [(1,), (4099,), (257, 1024)], ids=["one", "ragged", "2d"])
-def test_gamma_kernel_matches_plain(dev, shape):
-    """K12 against its plain version on the same Philox bits, shapes a in
-    {0.3, 0.5, 1, 2.5, 10, 50.5, 500} tiled over any shape; one launch."""
+@pytest.mark.parametrize("shape,shapes", [
+    ((1,), (0.3, 0.5, 1.0, 2.5, 10.0, 50.5, 500.0)), ((4099,), (0.3, 0.5, 1.0, 2.5, 10.0, 50.5, 500.0)),
+    ((257, 1024), (0.3, 0.5, 1.0, 2.5, 10.0, 50.5, 500.0)), ((1 << 20,), (0.01, 0.3, 1.0)),
+], ids=["one", "ragged", "2d", "past_round_0"])
+def test_gamma_kernel_matches_plain(dev, shape, shapes):
+    """K12 against its plain version on the same Philox bits, the shapes
+    tiled over any shape; one launch. ``past_round_0`` tiles {0.01, 0.3, 1}
+    over 2^20 draws, boosted shapes near 1 that accept round 0 least often, so
+    that many draws go through the kernel's queue of later rounds; a Gamma(0.01)
+    draw, u^100 times a Gamma(1.01) one, may underflow to 0 in float32. Every
+    value is equal."""
     from openmcmc_tpu_torch.linalg import gamma
 
     n = int(np.prod(shape))
-    a = torch.tensor([0.3, 0.5, 1.0, 2.5, 10.0, 50.5, 500.0]).repeat(n // 7 + 1)[:n].reshape(shape).to(dev)
+    a = torch.tensor(shapes).repeat(n // len(shapes) + 1)[:n].reshape(shape).to(dev)
     before = gamma.gamma_kernel.launches
     got = gamma.gamma(3, a)
     want = gamma.gamma_plain(3, a)
     torch.cuda.synchronize()
     assert gamma.gamma_kernel.launches == before + 1
-    assert got.shape == a.shape and bool(torch.all(got > 0))
+    assert got.shape == a.shape and bool(torch.all(got > 0) if min(shapes) >= 0.3 else torch.all(got >= 0))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got, want)
+    if shape == (1 << 20,):
+        assert int((gamma.gamma_rounds(3, a) > 1).sum()) > 10_000

@@ -123,3 +123,40 @@ def test_rounds_count_to_the_first_acceptance():
     rounds = tgamma.gamma_rounds(3, torch.tensor(SHAPES).repeat(2000))
     assert int(rounds.min()) >= 1 and int(rounds.max()) <= tgamma.N_ROUNDS
     assert 1.0 < float(rounds.double().mean()) < 1.06
+
+
+def test_first_accepted_round_wins():
+    """Element j first accepts in round j % 7 (6: never). A missed round reads
+    u1 = 2^-25 and u2 just above 1/2, so 1 + c x < 0 for these shapes; an
+    accepting round r reads u1 = (r + 1) / 16, u2 = 2^-25 and u = 2^-25, a
+    round of its own value. The plain version returns d v of exactly round
+    j % 7, d when every round misses, each boosted by the site-18 uniform where
+    a < 1; gamma_rounds returns j % 7 + 1, capped at N_ROUNDS. This is the rule
+    the kernel's early exit keeps."""
+    shapes = torch.tensor([0.3, 0.9, 1.0, 2.0, 3.5])
+    a = shapes.repeat_interleave(7)  # element j: shape j // 7, first accepted round j % 7
+    n = a.numel()
+    target = torch.arange(n) % 7
+
+    def bits(site, shape):
+        if site == tgamma.N_SITES - 1:
+            return torch.zeros(shape, dtype=torch.int64)
+        r, kind = divmod(site, 3)
+        accept = r >= target
+        if kind == 0:
+            return torch.where(accept, (r + 1) << 28, 0).to(torch.int64)
+        return torch.where(accept | (kind == 2), 0, 0x80000000).to(torch.int64)
+
+    got = tgamma.gamma_plain(0, a, bit_source=bits)
+    d = torch.where(a < 1.0, a + 1.0, a) - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    u1 = (torch.clamp(target, max=5).to(torch.float32) + 1.0) / 16.0 + 0.5 / 2.0**24
+    x = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(torch.tensor(6.283185307179586) * (0.5 / 2.0**24))
+    t = 1.0 + c * x
+    want = torch.where(target < 6, d * (t * (t * t)), d)
+    want = torch.where(a < 1.0, want * torch.tensor(0.5 / 2.0**24) ** (1.0 / a), want)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    per_shape = want.reshape(5, 7)
+    assert all(len(set(row[:6].tolist())) == 6 for row in per_shape)  # each round's value differs
+    rounds = tgamma.gamma_rounds(0, a, bit_source=bits)
+    assert torch.equal(rounds, torch.clamp(target + 1, max=tgamma.N_ROUNDS).to(torch.int32))
