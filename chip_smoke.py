@@ -414,6 +414,15 @@ def kernel_inputs(dev, y, P0, n_chains, noise=None, mu0=None, logdet_p0=None, la
     return args, kw
 
 
+def equal_chains(got, want, names):
+    """Chains whose every value of ``names`` equals the other output's bit for bit."""
+    ok = None
+    for name in names:
+        same = (got[name] == want[name]).reshape(got[name].shape[0], -1).all(1)
+        ok = same if ok is None else ok & same
+    return int(ok.sum())
+
+
 def compare(got, want, draw="b"):
     """Per-chain agreement of two engine outputs; returns (agreeing chains, max abs err)."""
     ok = torch.ones(got["lam"].shape[0], dtype=torch.bool, device=got["lam"].device)
@@ -890,6 +899,7 @@ def gmrf_small_phase(dev):
             want = gs.gmrf_smoother_plain(11, *args, **kw, **hyp)
             torch.cuda.synchronize()
             agree, err = compare(got, want)
+            same = equal_chains(got, want, ("b", "lam", "tau", "log_post"))
             name = f"{'truncated' if truncated else 'thomas'} ({chains}, {p})"
             if agree != chains:
                 raise AssertionError(f"gmrf_smoother kernel, {name}: {chains - agree} of {chains} chains differ")
@@ -897,7 +907,7 @@ def gmrf_small_phase(dev):
                 raise AssertionError(f"gmrf_smoother kernel, {name}: a draw left the box")
             worst = max(worst, err)
             log("gmrf", f"{name}, n_burn=3 n_iter=5 n_thin=2: all values agree with the plain version "
-                f"(rtol 1e-4), max abs err {err:.3g}")
+                f"(rtol 1e-4), {same} of {chains} chains bit for bit, max abs err {err:.3g}")
     return worst
 
 
@@ -981,9 +991,11 @@ def k4_times(smi, tag, mcmc, args, kw, hyp, flop_per_row, ess_b, plain_ms, reps,
     full_bound = k4_bound(hyp)
     bound_ms, bound_by, n_flop, n_bytes = k4_bound(timed)
     where = "" if plain_hyp is None else f" at n_burn {timed['n_burn']}, n_iter {timed['n_keep']}"
-    log(tag, f"{smi}: gmrf_smoother kernel {full_ms:.3f} ms for the whole run (median of {reps}), bound "
-        f"{full_bound[0]:.4f} ms ({full_bound[1]}: {full_bound[2]:.3g} FLOP, {full_bound[3]:.3g} B); MCMC.run end "
-        f"to end {1e3 * e2e:.3f} ms (median of {reps})")
+    n_sweeps = hyp["n_burn"] + hyp["n_keep"] * hyp["n_thin"]
+    log(tag, f"{smi}: gmrf_smoother kernel {full_ms:.3f} ms for the whole run (median of {reps}), "
+        f"{1e3 * full_ms / n_sweeps:.2f} us a sweep over {n_sweeps} sweeps, bound {full_bound[0]:.4f} ms "
+        f"({full_bound[1]}: {full_bound[2]:.3g} FLOP, {full_bound[3]:.3g} B); MCMC.run end to end "
+        f"{1e3 * e2e:.3f} ms (median of {reps})")
     log(tag, f"{smi}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms (the check's call), bound {bound_ms:.4f} ms "
         f"({bound_by}: {n_flop:.3g} FLOP, {n_bytes:.3g} B){where}")
     log(tag, f"{smi}: ESS/s of b {ess_b / (full_ms / 1e3):.4g} on kernel time, {ess_b / e2e:.4g} end to end")
@@ -1003,6 +1015,7 @@ def truncated_phase(dev, smi):
     got = {"b": res.store["b"][..., 0], "lam": res.store["lambda"][:, :, 0, 0], "tau": res.store["tau"][:, :, 0, 0],
            "log_post": res.log_post}
     agree, err = compare(got, want)
+    same = equal_chains(got, want, ("b", "lam", "tau", "log_post"))
     del want, got
     if agree < 0.999 * T_CHAINS:
         raise AssertionError(f"{tag}: only {agree} of {T_CHAINS} chains agree with the plain version")
@@ -1020,7 +1033,8 @@ def truncated_phase(dev, smi):
     del gen
     if not z < 5.0:
         raise AssertionError(f"{tag}: posterior means off the generic run's by {z:.2f} MC sd")
-    log(tag, f"{agree} of {T_CHAINS} chains agree with the plain version (rtol 1e-4), max abs err {err:.3g}; "
+    log(tag, f"{agree} of {T_CHAINS} chains agree with the plain version (rtol 1e-4), {same} bit for bit, max abs "
+        f"err {err:.3g}; "
         f"means of b, lambda, tau within {z:.2f} MC sd of the generic run's (limit 5; generic run {gen_wall:.3f} s); "
         f"mean ESS of b {ess_b:.1f} over {T_CHAINS * T_ITER} draws")
     entry = k4_times(smi, tag, mcmc, args, kw, hyp, K4_FLOP_PER_TRUNC_ROW, ess_b, plain_ms, reps=3)
@@ -1044,9 +1058,11 @@ def thomas_long_phase(dev, smi):
     got = gs.gmrf_smoother_kernel(SEED, *args, **kw, **short)
     want, plain_ms = cuda_call_ms(lambda: gs.gmrf_smoother_plain(SEED, *args, **kw, **short))
     agree, err = compare(got, want)
+    same = equal_chains(got, want, ("b", "lam", "tau", "log_post"))
     del got, want
-    if agree != L_CHAINS:
-        raise AssertionError(f"{tag}: {L_CHAINS - agree} of {L_CHAINS} chains differ from the plain version")
+    if same != L_CHAINS:
+        raise AssertionError(f"{tag}: {L_CHAINS - same} of {L_CHAINS} chains differ from the plain version bit for "
+                             f"bit ({L_CHAINS - agree} beyond rtol 1e-4)")
     reset_launches()
     t0 = time.perf_counter()
     gen = long_mcmc(dev, L_GEN_BURN, L_GEN_ITER).run()
@@ -1060,11 +1076,11 @@ def thomas_long_phase(dev, smi):
     torch.cuda.empty_cache()
     if not z < 5.0:
         raise AssertionError(f"{tag}: posterior means off the generic run's by {z:.2f} MC sd")
-    log(tag, f"kernel and plain version agree on all {L_CHAINS} chains at p = {L_P}, n_burn 2, n_iter 3 (rtol "
-        f"1e-4), max abs err {err:.3g}; means of b, lambda, tau within {z:.2f} MC sd of the generic (K3) run's "
+    log(tag, f"kernel and plain version equal bit for bit on all {L_CHAINS} chains at p = {L_P}, n_burn 2, "
+        f"n_iter 3 ({agree} within rtol 1e-4), max abs err {err:.3g}; means of b, lambda, tau within {z:.2f} MC sd of the generic (K3) run's "
         f"(limit 5; generic run of {L_GEN_BURN} + {L_GEN_ITER} sweeps {gen_wall:.3f} s); mean ESS of b {ess_b:.1f} over "
         f"{L_CHAINS * L_ITER} draws")
-    entry = k4_times(smi, tag, mcmc, args, kw, hyp, K4_FLOP_PER_THOMAS_ROW, ess_b, plain_ms, reps=1,
+    entry = k4_times(smi, tag, mcmc, args, kw, hyp, K4_FLOP_PER_THOMAS_ROW, ess_b, plain_ms, reps=3,
                      plain_hyp=short)
     return {"launches": launches["gmrf_smoother"], "max_abs_err": err, **entry}
 
@@ -1947,11 +1963,13 @@ def mixture_small_phase(dev):
         want = mixture.mixture_sweeps_plain(SEED, scal, data, 256, **kw)
         torch.cuda.synchronize()
         agree, err = compare_mixture(got, want)
+        same = equal_chains(got, want, ("means", "lams", "log_post", "accept_total", "z"))
         if agree != 256:
             raise AssertionError(f"mixture_small: K = {k}, n = {n}: only {agree} of 256 chains equal the plain version")
         worst = max(worst, err)
         log("mixture_small", f"K = {k}, n = {n}, {'conjugate' if conjugate else 'random walk with a box'}: all 256 "
-            f"chains equal the plain version (every allocation, values rtol 1e-4), max abs err {err:.3g}; "
+            f"chains equal the plain version (every allocation, values rtol 1e-4), {same} bit for bit, max abs err "
+            f"{err:.3g}; "
             f"{kw['threads']} threads per chain; accepts {int(got['accept_total'].sum())}")
     return worst
 
@@ -2017,6 +2035,7 @@ def mixture_phase(dev, smi, kind):
     got = mixture.mixture_sweeps_kernel(mcmc.seed, *args, **kw, **short)
     want, plain_ms = cuda_call_ms(lambda: mixture.mixture_sweeps_plain(mcmc.seed, *args, **kw, **short))
     agree, err = compare_mixture(got, want)
+    same = equal_chains(got, want, ("means", "lams", "log_post", "accept_total"))
     del got, want
     torch.cuda.empty_cache()
     if agree < 0.999 * n_chains:
@@ -2063,7 +2082,7 @@ def mixture_phase(dev, smi, kind):
     if not zs < 5.0:
         raise AssertionError(f"{kind}: sorted posterior means off the generic run's by {zs:.2f} MC sd")
     log(kind, f"kernel and plain version agree on {agree} of {n_chains} chains at n_burn 1, n_iter 2 (rtol 1e-4), "
-        f"max abs err {err:.3g}; sorted means and lams within {zs:.2f} MC sd of the generic run's (limit 5; "
+        f"{same} bit for bit, max abs err {err:.3g}; sorted means and lams within {zs:.2f} MC sd of the generic run's (limit 5; "
         f"generic run of {gen.n_chains} chains, {gen.n_burn} + {gen.n_iter} sweeps, {gen_wall:.3f} s)")
 
     run_hyp = dict(n_burn=mcmc.n_burn, n_keep=n_iter, n_thin=1)
@@ -2085,7 +2104,9 @@ def mixture_phase(dev, smi, kind):
 
     run_bound = bound_of(mcmc.n_burn + n_iter, n_iter)
     bound_ms, bound_by, n_flop, n_bytes = bound_of(3, 2)
-    log(kind, f"{smi}: kernel {run_ms:.4f} ms for the whole run (median of 3), bound {run_bound[0]:.4f} ms "
+    log(kind, f"{smi}: kernel {run_ms:.4f} ms for the whole run (median of 3), "
+        f"{1e3 * run_ms / (mcmc.n_burn + n_iter):.2f} us a sweep over {mcmc.n_burn + n_iter} sweeps, bound "
+        f"{run_bound[0]:.4f} ms "
         f"({run_bound[1]}: {run_bound[2]:.3g} FLOP, {run_bound[3]:.3g} B), {run_ms / run_bound[0]:.1f}x; "
         f"MCMC.run end to end {1e3 * e2e:.3f} ms (median of 3)")
     log(kind, f"{smi}: at n_burn 1, n_iter 2: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms (the check's call), bound "

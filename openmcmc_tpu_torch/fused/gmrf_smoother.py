@@ -234,11 +234,12 @@ def gmrf_smoother_kernel(seed, p0d, p0c, y, d, mu, p0mu, lam0, tau0, *, lo=None,
     lam0, tau0 = lam0.contiguous(), tau0.contiguous()
     if truncated:
         lo, hi = lo.contiguous(), hi.contiguous()
-        s1 = b_init.t().contiguous()  # (p, chains): the carried x, updated in place
+        s1 = b_init.contiguous().clone()  # (chains, p): the carried x, seeded with b_init
         s2 = s1
     else:
-        s1 = torch.empty((p, n_chains), dtype=torch.float32, device=y.device)  # ld
-        s2 = torch.empty_like(s1)  # u
+        # (p, chains rounded up to the kernel's 32 chains a block): ld, and u then x
+        s1 = torch.empty((p, -(-n_chains // 32) * 32), dtype=torch.float32, device=y.device)
+        s2 = torch.empty_like(s1)
     out_b = torch.empty((n_chains, n_keep, p), dtype=torch.float32, device=y.device)
     out = {k: torch.empty((n_chains, n_keep), dtype=torch.float32, device=y.device)
            for k in ("lam", "tau", "log_post")}

@@ -249,6 +249,8 @@ def mixture_sweeps_kernel(seed, scal, data, n_chains, *, k_comp, n, threads, con
     _check_inputs(scal, data, n_chains, k_comp, n, threads)
     if scal.device.type != "cuda":
         raise ValueError(f"mixture kernel: expected CUDA tensors, got {scal.device}")
+    if data.data_ptr() % 16:
+        raise ValueError("mixture kernel: data must start on a 16-byte boundary (its columns are read as float4)")
     if n_keep < 1 or n_burn < 0 or n_thin < 1:
         raise ValueError("need n_keep >= 1, n_burn >= 0 and n_thin >= 1")
     from openmcmc_tpu_torch import _build

@@ -203,11 +203,18 @@ def _k4_inputs(dev, n_chains, p, truncated):
     return args, kw
 
 
-@pytest.mark.parametrize("truncated", [False, True], ids=["thomas", "truncated"])
-@pytest.mark.parametrize("n_chains,p", [(64, 12), (1000, 1031)], ids=["small", "ragged"])
+@pytest.mark.parametrize("truncated,n_chains,p", [
+    (False, 64, 12), (True, 64, 12), (False, 1000, 1031), (True, 1000, 1031), (False, 1000, 4096),
+    (False, 1000, 4099), (True, 4096, 100), (True, 64, 6200),
+], ids=["small-thomas", "small-truncated", "ragged-thomas", "ragged-truncated", "p4096-thomas", "p4099-thomas",
+        "p100_4096chains-truncated", "p6200_global-truncated"])
 def test_gmrf_smoother_kernel_matches_plain(dev, truncated, n_chains, p):
     """K4 against its plain version on the same Philox bits, n_burn 3, n_keep 4,
-    n_thin 2; b, lam, tau rtol 1e-4 atol 1e-5, log_post 1e-4 relative."""
+    n_thin 2; b, lam, tau rtol 1e-4 atol 1e-5, log_post 1e-4 relative, and
+    every value equal bit for bit (1000 chains: not a multiple of a Thomas
+    block's 32); every truncated draw in its box. At p = 6200 the truncated
+    kernel's carried x (4 p floats a block) is past 96 KB and stays in the
+    per-chain global scratch."""
     from openmcmc_tpu_torch.fused import gmrf_smoother as gs
 
     args, kw = _k4_inputs(dev, n_chains, p, truncated)
@@ -221,6 +228,56 @@ def test_gmrf_smoother_kernel_matches_plain(dev, truncated, n_chains, p):
         torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
     assert torch.all(torch.abs(got["log_post"] - want["log_post"])
                      <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
+    if truncated:
+        assert bool(torch.all((got["b"] >= kw["lo"]) & (got["b"] <= kw["hi"])))
+    for name in ("b", "lam", "tau", "log_post"):
+        assert torch.equal(got[name], want[name]), name
+
+
+def _thomas_forward(p0d, p0c, y, d, p0mu, lam, tau):
+    """The first sweep's forward recurrences of one chain, as the plain version
+    runs them in float32: l_i = lam c_{i-1} / ld_{i-1}, ld_i and w_i per row."""
+    rhs, qd = tau * (d * y) + lam * p0mu, lam * p0d + tau * d
+    ld_prev, w_prev = torch.tensor(1.0), torch.tensor(0.0)
+    ls, lds, ws = [], [], []
+    for i in range(y.shape[0]):
+        l_prev = (lam * p0c[i - 1] if i else torch.tensor(0.0)) / ld_prev
+        ld = torch.sqrt(qd[i] - l_prev * l_prev)
+        w = (rhs[i] - l_prev * w_prev) / ld
+        ls.append(l_prev)
+        lds.append(ld)
+        ws.append(w)
+        ld_prev, w_prev = ld, w
+    return torch.stack(ls), torch.stack(lds), torch.stack(ws)
+
+
+def test_gmrf_smoother_exact_redo_matches_plain(dev):
+    """K4's Thomas variant where its certificates fail: y at 1e-16 puts the
+    forward quotients' |b q| below the certified range, so every sweep's passes
+    rerun with the IEEE operators; the values still equal the plain version's
+    bit for bit (1000 chains, p 300). The precondition is checked first: the
+    first sweep's forward divisions (l = lam c / ld_prev, w = (rhs - l w_prev) / ld)
+    hold some divisor outside [2^-30, 2^30] or some |divisor x quotient|
+    outside [2^-40, 2^40], the ranges ``div_certified`` accepts."""
+    from openmcmc_tpu_torch.fused import gmrf_smoother as gs
+
+    args, kw = _k4_inputs(dev, 1000, 300, False)
+    args[2] = args[2] * 1e-16
+    args[4] = torch.zeros_like(args[4])
+    args[5] = torch.zeros_like(args[5])
+    kw.update(n_burn=3, n_keep=4, n_thin=2)
+    p0d, p0c, y, d, _, p0mu = (t.cpu() for t in args[:6])
+    l, ld, w = _thomas_forward(p0d, p0c, y, d, p0mu, args[6][0].cpu(), args[7][0].cpu())
+    divisor = torch.cat([torch.cat([torch.ones(1), ld[:-1]]), ld])
+    bq = torch.abs(divisor * torch.cat([l, w]))[1:]  # row 0's l is not a division
+    divisor = torch.abs(divisor)[1:]
+    outside = (divisor < 2**-30) | (divisor > 2**30) | (bq < 2**-40) | (bq > 2**40)
+    assert bool(outside.any()), "the inputs no longer force the IEEE rerun"
+    got = gs.gmrf_smoother(13, *args, **kw)
+    want = gs.gmrf_smoother_plain(13, *args, **kw)
+    torch.cuda.synchronize()
+    for name in ("b", "lam", "tau", "log_post"):
+        assert torch.equal(got[name], want[name]), name
 
 
 @pytest.mark.parametrize("truncated", [False, True], ids=["thomas", "truncated"])
@@ -464,15 +521,18 @@ def test_gamma_elem_kernel_matches_plain(dev):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
 
 
-@pytest.mark.parametrize("k,n,conjugate,box", [(2, 200, False, True), (2, 2100, True, False), (16, 3000, True, False),
-                                               (16, 2500, False, True), (5, 37, False, False)],
-                         ids=["k2_n200_rw_box", "k2_n2100_conjugate", "k16_n3000_conjugate", "k16_n2500_rw_box",
-                              "k5_n37_rw"])
-def test_mixture_kernel_matches_plain(dev, k, n, conjugate, box):
-    """K10 against its plain version on the same Philox bits: 64 chains, n_burn
-    3, n_keep 4, n_thin 2, Z stored; both variants, K = 2, 5 and 16, n from 37
-    (a ragged group of four) past 2048. Every allocation equal; means, lams
-    rtol 1e-4, atol 1e-5; log_post 1e-4 relative; the accept counts equal."""
+@pytest.mark.parametrize("k,n,conjugate,box,n_chains", [
+    (2, 200, False, True, 64), (2, 2100, True, False, 64), (16, 3000, True, False, 64), (16, 2500, False, True, 64),
+    (5, 37, False, False, 64), (16, 100_000, True, False, 37), (2, 200, True, False, 61), (2, 200, False, True, 61),
+], ids=["k2_n200_rw_box", "k2_n2100_conjugate", "k16_n3000_conjugate", "k16_n2500_rw_box", "k5_n37_rw",
+        "k16_n100000_conjugate_37chains", "k2_n200_conjugate_61chains", "k2_n200_rw_box_61chains"])
+def test_mixture_kernel_matches_plain(dev, k, n, conjugate, box, n_chains):
+    """K10 against its plain version on the same Philox bits: n_burn 3, n_keep
+    4, n_thin 2, Z stored; both variants, K = 2, 5 and 16, n from 37 (a ragged
+    group of four) past 2048 to 100,000, 64 chains or a count that is not a
+    multiple of a block's four warp-chains. Every allocation equal; means, lams
+    rtol 1e-4, atol 1e-5; log_post 1e-4 relative; the accept counts equal; and
+    every value equal bit for bit."""
     from openmcmc_tpu_torch.fused import mixture
 
     rng = np.random.default_rng(k + n)
@@ -484,17 +544,37 @@ def test_mixture_kernel_matches_plain(dev, k, n, conjugate, box):
                                      domain=domain, device=dev)
     kw.update(conjugate=conjugate, step=0.3, n_burn=3, n_keep=4, n_thin=2, store_z=True)
     before = mixture.mixture_sweeps_kernel.launches
-    got = mixture.mixture_sweeps(5, scal, data, 64, **kw)
-    want = mixture.mixture_sweeps_plain(5, scal, data, 64, **kw)
+    got = mixture.mixture_sweeps(5, scal, data, n_chains, **kw)
+    want = mixture.mixture_sweeps_plain(5, scal, data, n_chains, **kw)
     torch.cuda.synchronize()
     assert mixture.mixture_sweeps_kernel.launches == before + 1
-    assert tuple(got["z"].shape) == (64, 4, n) and got["z"].dtype == torch.int32
+    assert tuple(got["z"].shape) == (n_chains, 4, n) and got["z"].dtype == torch.int32
     assert torch.equal(got["z"], want["z"])
     for name in ("means", "lams"):
         torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
     assert torch.all(torch.abs(got["log_post"] - want["log_post"])
                      <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
     assert torch.equal(got["accept_total"], want["accept_total"])
+    for name in ("means", "lams", "log_post"):
+        assert torch.equal(got[name], want[name]), name
+
+
+def test_mixture_kernel_rejects_misaligned_data(dev):
+    """K10 reads ``data`` as float4: a contiguous view that starts off a 16-byte
+    boundary raises a ValueError before any launch."""
+    from openmcmc_tpu_torch.fused import mixture
+
+    rng = np.random.default_rng(0)
+    y = rng.normal(size=40)
+    scal, data, kw = mixture.prepare(y, rng.uniform(0.2, 1.0, (40, 2)), 0.0, 0.01, 2.0, 1.0, np.array([-1.0, 1.0]),
+                                     np.ones(2), device=dev)
+    kw.update(conjugate=True, step=0.3, n_burn=1, n_keep=1)
+    shifted = torch.empty(data.numel() + 1, dtype=torch.float32, device=dev)[1:].view(data.shape)
+    shifted.copy_(data)
+    before = mixture.mixture_sweeps_kernel.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        mixture.mixture_sweeps(5, scal, shifted, 8, **kw)
+    assert mixture.mixture_sweeps_kernel.launches == before
 
 
 def _rj_inputs(dev, lik, p, n_data, n_chains, warm, seed=0):
