@@ -13,6 +13,11 @@ and 500 stored sweeps) through both of the port's paths:
   canonical tridiagonal kernel (K3) per sweep, its posterior means held against
   the fused run's within the Monte Carlo bound.
 
+Before them ``tridiag`` holds K3 against its plain version at (8192, 100),
+(1000, 4099) and (4096, 4096), counting the values equal bit for bit, and on a
+forced IEEE rerun bit for bit, and times the kernel alone and through its
+wrapper at the shapes of the generic flagship and of ``thomas_long``'s twin.
+
 Then the two paths ``engine="auto"`` takes to the Thomas-scan kernel (K4), each
 through ``MCMC.run(engine="auto")`` with one K4 launch, held against K4's plain
 version and, in posterior means, against the generic driver:
@@ -37,9 +42,9 @@ held against the generic driver's (the dense NormalNormal step, no kernel):
 
 Then the Metropolis family, each cell through ``MCMC.run(engine="auto")`` with
 one launch of its kernel, that kernel held against its plain version on a short
-run at full width, and its posterior means held against a generic twin's (the
-port's RandomWalk or ManifoldMALA, no kernel) and, where there is one, the
-analytic posterior:
+run at full width (the chains bit-identical counted), and its posterior means
+held against a generic twin's (the port's RandomWalk or ManifoldMALA, no
+kernel) and, where there is one, the analytic posterior:
 
 - ``rw``: the reference's example 2 as bench_all.py builds it (y = [150, 155,
   190, 160, 173], h0 = 200, RandomWalk step 5, 8192 chains, no burn-in, 1000
@@ -668,11 +673,14 @@ def tridiag_inputs(dev, n_chains, p, seed):
 
 def tridiag_phase(dev, smi):
     """K3 against its plain version on the same Philox bits, value for value, at
-    the main path's shape and at a ragged one; then its draw's moments."""
+    the main path's shape, at thomas_long's twin's and at a ragged one, and on a
+    forced IEEE rerun bit for bit; its draw's moments; then the kernel alone
+    (one launch on prepared arguments) and the wrapper, timed at both paths'
+    shapes."""
     from openmcmc_tpu_torch.linalg import tridiag
 
-    worst = 0.0
-    for n_chains, p in ((N_CHAINS, N_TIME), (1000, 4099)):
+    worst, equal = 0.0, {}
+    for n_chains, p in ((N_CHAINS, N_TIME), (1000, 4099), (L_CHAINS, L_P)):
         a, c, b = tridiag_inputs(dev, n_chains, p, seed=p)
         got = tridiag.sample_canonical_tridiag(SEED, 123, a, c, b)
         want = tridiag.sample_canonical_tridiag_plain(SEED, 123, a, c, b)
@@ -683,8 +691,21 @@ def tridiag_phase(dev, smi):
                                  "from the plain version (rtol 1e-4, atol 1e-5)")
         err = float(torch.max(torch.abs(got - want)))
         worst = max(worst, err)
+        equal[f"{n_chains}x{p}"] = int((got == want).sum())
         log("tridiag", f"({n_chains}, {p}): all values agree with the plain version (rtol 1e-4, atol 1e-5), "
-            f"max abs err {err:.3g}")
+            f"{equal[f'{n_chains}x{p}']} of {got.numel()} equal bit for bit, max abs err {err:.3g}")
+        del a, c, b, got, want, close
+
+    # b at 1e-16 puts |ld w| below the certified range: every block reruns with the IEEE operators
+    a, c, b = tridiag_inputs(dev, 1000, 300, seed=300)
+    got = tridiag.sample_canonical_tridiag(SEED, 124, a, c, b * 1e-16)
+    want = tridiag.sample_canonical_tridiag_plain(SEED, 124, a, c, b * 1e-16)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"tridiag kernel's IEEE rerun: {int((got != want).sum())} of {got.numel()} values "
+                             "differ from the plain version")
+    log("tridiag", "forced IEEE rerun (b at 1e-16, 1000 chains, p = 300): every value equal to the plain version "
+        "bit for bit")
 
     # one Q and b shared by every chain: the flagship's conditional at lambda = 100, tau = 1
     s, P = rw1_p0(N_TIME, 1e-3)
@@ -702,21 +723,35 @@ def tridiag_phase(dev, smi):
         raise AssertionError(f"tridiag kernel: chain mean of x off Q^-1 b by {z.max():.2f} sd/sqrt(B)")
     log("tridiag", f"chain mean of x within {z.max():.2f} sd/sqrt(B) of Q^-1 b over {N_CHAINS} chains")
 
-    def kernel():
-        return tridiag.sample_canonical_tridiag(SEED, 5, a, c, b)
+    def times(a, c, b, reps, plain_reps):
+        """The kernel: launches back to back on prepared arguments between two
+        events, over their count (median of 5 batches), so the host's launch
+        time hides behind the card's; the wrapper: one call between two events
+        (median of ``reps``), its host time included, as the generic sweep
+        meets it."""
+        args = tridiag.launch_args(SEED, 5, a, c, b)
+        tridiag.launch(*args)
+        torch.cuda.synchronize()
+        kernel_ms = statistics.median(
+            cuda_call_ms(lambda: [tridiag.launch(*args) for _ in range(reps)])[1] / reps for _ in range(5))
+        wrapper_ms = cuda_ms(lambda: tridiag.sample_canonical_tridiag(SEED, 5, a, c, b), reps)
+        plain_ms = cuda_ms(lambda: tridiag.sample_canonical_tridiag_plain(SEED, 5, a, c, b), plain_reps)
+        n = a.numel()
+        return (kernel_ms, wrapper_ms, plain_ms, *bound(16 * n, K3_FLOP_PER_ELEM * n))
 
-    def plain():
-        return tridiag.sample_canonical_tridiag_plain(SEED, 5, a, c, b)
-
-    kernel()
-    torch.cuda.synchronize()
-    ms = cuda_ms(kernel, 25)
-    plain_ms = cuda_ms(plain, 5)
-    bound_ms, bound_by = bound(16 * N_CHAINS * N_TIME, K3_FLOP_PER_ELEM * N_CHAINS * N_TIME)
-    log("tridiag", f"{smi}: at ({N_CHAINS}, {N_TIME}) the wrapper (layout transposes and kernel) takes {ms:.4f} ms "
-        f"(median of 25), plain {plain_ms:.3f} ms (median of 5), bound {1e3 * bound_ms:.2f} us ({bound_by})")
+    ms, wrapper_ms, plain_ms, bound_ms, bound_by = times(a, c, b, 25, 5)
+    log("tridiag", f"{smi}: at ({N_CHAINS}, {N_TIME}) the kernel takes {ms:.4f} ms (25 launches back to back, "
+        f"median of 5), the wrapper {wrapper_ms:.4f} ms a call (median of 25), plain {plain_ms:.3f} ms (median of "
+        f"5), bound {1e3 * bound_ms:.2f} us ({bound_by})")
+    a, c, b = tridiag_inputs(dev, L_CHAINS, L_P, seed=L_P)
+    long_ms, long_wrapper_ms, long_plain_ms, long_bound_ms, long_bound_by = times(a, c, b, 10, 1)
+    log("tridiag", f"{smi}: at ({L_CHAINS}, {L_P}) the kernel takes {long_ms:.4f} ms (10 launches back to back, "
+        f"median of 5), the wrapper {long_wrapper_ms:.4f} ms a call (median of 10), plain {long_plain_ms:.1f} ms "
+        f"(one call), bound {long_bound_ms:.4f} ms ({long_bound_by})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, "wrapper_ms": wrapper_ms, "bit_equal": equal,
+            "thomas_long_twin": {"ms": long_ms, "wrapper_ms": long_wrapper_ms, "plain_ms": long_plain_ms,
+                                 "bound_ms": long_bound_ms, "bound_by": long_bound_by}}
 
 
 def sync_count(dev, n_burn, n_iter):
@@ -747,7 +782,7 @@ def device_times_us(prof, kernel="tridiag_canonical"):
             [(e.key[:60], e.count, round(self_us(e) / 1e3, 3)) for e in top])
 
 
-def generic_phase(dev, fused_moments, k3_ms, smi):
+def generic_phase(dev, fused_moments, k3, smi):
     """No per-sweep synchronisation in the generic driver; then the driver at full
     width, its K3 launches, its posterior against the fused run's, and its time."""
     from torch.profiler import ProfilerActivity, profile
@@ -790,8 +825,10 @@ def generic_phase(dev, fused_moments, k3_ms, smi):
         f"{name} mean {float(v['mean']):.4f} sd {float(v['sd']):.4f} q05-q95 [{float(v['q05']):.4f}, "
         f"{float(v['q95']):.4f}] ESS {float(v['ess']):.1f} R-hat {float(v['rhat']):.5f}" for name, v in scales.items()))
     log("generic", f"{smi}: MCMC.run(engine='generic') {1e3 * e2e:.3f} ms (warm: after the synchronisation "
-        f"runs); K3 {n_sweeps} x {k3_ms:.4f} ms = {n_sweeps * k3_ms:.3f} ms "
-        f"({100 * n_sweeps * k3_ms / (1e3 * e2e):.1f} % of the run); mean ESS of b {ess_b:.1f}; "
+        f"runs); K3 {n_sweeps} x {k3['ms']:.4f} ms = {n_sweeps * k3['ms']:.3f} ms of kernel "
+        f"({100 * n_sweeps * k3['ms'] / (1e3 * e2e):.1f} % of the run), {n_sweeps} x {k3['wrapper_ms']:.4f} ms = "
+        f"{n_sweeps * k3['wrapper_ms']:.3f} ms through the wrapper "
+        f"({100 * n_sweeps * k3['wrapper_ms'] / (1e3 * e2e):.1f} %); mean ESS of b {ess_b:.1f}; "
         f"ESS/s {ess_b / e2e:.4g} end to end")
 
     # a short steady window under a device-only trace: 5 burn-in and 15 stored sweeps at full width
@@ -1041,7 +1078,7 @@ def truncated_phase(dev, smi):
     return {"launches": launches["gmrf_smoother"], "max_abs_err": err, **entry}, launches
 
 
-def thomas_long_phase(dev, smi):
+def thomas_long_phase(dev, smi, k3):
     """The long-series cell: one K4 launch, the kernel against the plain version
     on a short run at full width, posterior means against the generic (K3) run,
     times."""
@@ -1080,6 +1117,10 @@ def thomas_long_phase(dev, smi):
         f"n_iter 3 ({agree} within rtol 1e-4), max abs err {err:.3g}; means of b, lambda, tau within {z:.2f} MC sd of the generic (K3) run's "
         f"(limit 5; generic run of {L_GEN_BURN} + {L_GEN_ITER} sweeps {gen_wall:.3f} s); mean ESS of b {ess_b:.1f} over "
         f"{L_CHAINS * L_ITER} draws")
+    n_gen = k3["launches"] = gen_launches["tridiag_canonical"]
+    log(tag, f"{smi}: the generic (K3) run's {n_gen} K3 launches at ({L_CHAINS}, {L_P}): {n_gen} x {k3['ms']:.4f} ms "
+        f"= {n_gen * k3['ms']:.3f} ms of kernel ({100 * n_gen * k3['ms'] / (1e3 * gen_wall):.1f} % of its "
+        f"{gen_wall:.3f} s), {n_gen * k3['wrapper_ms']:.3f} ms through the wrapper")
     entry = k4_times(smi, tag, mcmc, args, kw, hyp, K4_FLOP_PER_THOMAS_ROW, ess_b, plain_ms, reps=3,
                      plain_hyp=short)
     return {"launches": launches["gmrf_smoother"], "max_abs_err": err, **entry}
@@ -1431,6 +1472,7 @@ def mh_checks(tag, mcmc, res, name, kernel_fn, plain_fn, args, kw, short, gen_mc
     got = kernel_fn(mcmc.seed, *args, **kw, **short)
     want, plain_ms = cuda_call_ms(lambda: plain_fn(mcmc.seed, *args, **kw, **short))
     agree, err = compare_mh(got, want, draw)
+    same = equal_chains(got, want, (draw, "log_post", "accept", "accept_total", "log_step"))
     del got, want
     n_chains = mcmc.n_chains
     if agree < 0.999 * n_chains:
@@ -1450,12 +1492,13 @@ def mh_checks(tag, mcmc, res, name, kernel_fn, plain_fn, args, kw, short, gen_mc
     if not z < 5.0:
         raise AssertionError(f"{tag}: posterior means off the generic run's by {z:.2f} MC sd")
     log(tag, f"kernel and plain version agree on {agree} of {n_chains} chains at n_burn {short['n_burn']}, n_iter "
-        f"{short['n_keep']} (rtol 1e-4, every accept decision), max abs err {err:.3g}; means of {name} within "
+        f"{short['n_keep']} (rtol 1e-4, every accept decision; {same} bit for bit), max abs err {err:.3g}; "
+        f"means of {name} within "
         f"{z:.2f} MC sd of the generic run's (limit 5; generic run of {gen_mcmc.n_chains} chains, {gen_mcmc.n_burn} + "
         f"{gen_mcmc.n_iter} sweeps, {gen_wall:.3f} s, acceptance {gen_acc:.2f} %)"
         + ("" if exact_z is None else f" and within {exact_z:.2f} MC sd of the analytic posterior")
         + f"; mean ESS of {name} {ess:.1f} over {n_chains * mcmc.n_iter} draws")
-    return err, plain_ms, ess
+    return err, plain_ms, ess, same
 
 
 def mh_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n_in, p, ess, acc, plain_ms, reps):
@@ -1520,8 +1563,9 @@ def rw_phase(dev, smi, kind):
     else:
         short, exact, chunk = dict(n_burn=20, n_keep=30, n_thin=1), None, 32
         gen = rw_mcmc(dev, kind, n_chains=B_GEN_CHAINS, n_burn=B_GEN_BURN, n_iter=B_GEN_ITER)
-    err, plain_ms, ess = mh_checks(kind, mcmc, res, "h", rw.rw_sweeps_kernel, rw.rw_sweeps_plain, (scal, mcmc.n_chains),
-                                   kw, short, gen, "h", chunk, exact=exact, keep_from=200)
+    err, plain_ms, ess, same = mh_checks(kind, mcmc, res, "h", rw.rw_sweeps_kernel, rw.rw_sweeps_plain,
+                                         (scal, mcmc.n_chains), kw, short, gen, "h", chunk, exact=exact,
+                                         keep_from=200)
     per_coord = K7_FLOP_PER_TRUNC_COORD if box is not None else K7_FLOP_PER_COORD
 
     def flop(n_sweeps, n_keep):
@@ -1530,7 +1574,8 @@ def rw_phase(dev, smi, kind):
     entry = mh_times(smi, kind, mcmc, rw.rw_sweeps_kernel, (scal, mcmc.n_chains), kw,
                      dict(n_burn=mcmc.n_burn, n_keep=mcmc.n_iter, n_thin=1), short, flop, scal.numel(), p, ess, acc,
                      plain_ms, reps=3)
-    return {"launches": launches["random_walk"], "max_abs_err": err, "acceptance_pct": acc, **entry}
+    return {"launches": launches["random_walk"], "max_abs_err": err, "acceptance_pct": acc,
+            "bit_identical_chains": same, **entry}
 
 
 def st_diag(value, p):
@@ -1578,8 +1623,8 @@ def mmala_phase(dev, smi, wide):
 
         def flop(n_sweeps, n_keep):
             return n_sweeps * k8_flop_per_sweep(p)
-    err, plain_ms, ess = mh_checks(tag, mcmc, res, "beta", kernel_fn, plain_fn, args, kw, short, gen, "beta", chunk,
-                                   exact=mmala_posterior(wide))
+    err, plain_ms, ess, _ = mh_checks(tag, mcmc, res, "beta", kernel_fn, plain_fn, args, kw, short, gen, "beta", chunk,
+                                      exact=mmala_posterior(wide))
     entry = mh_times(smi, tag, mcmc, kernel_fn, args, kw, dict(n_burn=mcmc.n_burn, n_keep=mcmc.n_iter, n_thin=1),
                      short, flop, n_in, p, ess, acc, plain_ms, reps=3)
     return {"launches": launches[kernel], "max_abs_err": err, "acceptance_pct": acc, **entry}
@@ -2458,12 +2503,12 @@ def main():
     del want
     k1_res = timing_phase(mcmc, args, kw, hyp, ess_b, k1_plain_ms, smi)
     del mcmc, args
-    generic_launches = generic_phase(dev, fused_moments, tri_res["ms"], smi)
+    generic_launches = generic_phase(dev, fused_moments, tri_res, smi)
     resume_phase(dev, smi, fused_moments)
     trunc_draws = truncnorm_phase(dev)
     k4_err = gmrf_small_phase(dev)
     k4_trunc, k4_trunc_launches = truncated_phase(dev, smi)
-    k4_long = thomas_long_phase(dev, smi)
+    k4_long = thomas_long_phase(dev, smi, tri_res["thomas_long_twin"])
     k6 = linreg_phase(dev, smi)
     torch.cuda.empty_cache()
     k5 = linreg_wide_phase(dev, smi)
@@ -2491,7 +2536,9 @@ def main():
          "replaces": REPLACES["spectral_smoother"], "launches": launches["spectral_smoother"],
          "max_abs_err": err, **k1_res},
         {"name": "tridiag_canonical", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/tridiag_canonical.cu",
-         "replaces": REPLACES["tridiag_canonical"], "launches": generic_launches["tridiag_canonical"], **tri_res},
+         "replaces": REPLACES["tridiag_canonical"], "launches": generic_launches["tridiag_canonical"], **tri_res,
+         "launches_by_path": {"generic": generic_launches["tridiag_canonical"],
+                              "thomas_long_twin": tri_res["thomas_long_twin"]["launches"]}},
         {"name": "gmrf_smoother_truncated", **k4, **k4_trunc,
          "max_abs_err": max(k4_trunc["max_abs_err"], k4_err)},
         {"name": "gmrf_smoother_thomas", **k4, **k4_long, "max_abs_err": max(k4_long["max_abs_err"], k4_err)},

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("gamma.cu", "gmrf_smoother.cu", "linreg.cu", "mixture.cu", "mmala.cu", "prng_draws.cu", "random_walk.cu",
            "rj.cu", "spectral_linreg.cu", "spectral_mmala.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
-HEADERS = ("layout.cuh", "philox.cuh", "prng.cuh", "spectral_store.cuh")
+HEADERS = ("layout.cuh", "philox.cuh", "prng.cuh", "spectral_store.cuh", "thomas.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -113,7 +113,7 @@ def library() -> ctypes.CDLL:
     lib.spectral_smoother_launch.restype = ctypes.c_int
     lib.prng_draws_launch.argtypes = [_P] * 5 + [ctypes.c_int, _P]
     lib.prng_draws_launch.restype = ctypes.c_int
-    lib.tridiag_canonical_launch.argtypes = [_P] * 8
+    lib.tridiag_canonical_launch.argtypes = [_P] * 7
     lib.tridiag_canonical_launch.restype = ctypes.c_int
     lib.gmrf_smoother_launch.argtypes = [_P] * 18
     lib.gmrf_smoother_launch.restype = ctypes.c_int

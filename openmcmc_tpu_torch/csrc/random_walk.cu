@@ -20,18 +20,24 @@
 // (chain, sweep, site, i / 4), word i % 4. Site 0 holds the p proposal normals
 // (truncated: the p truncated-draw uniforms), site 1 the accept uniform.
 //
-// Design: one thread per chain, K6's. For p <= 8 the kernel is templated on p,
-// every loop unrolled and h, h' in registers; 9 <= p <= 32 share one looped
-// instantiation whose rows sit in local memory (L1-resident). The p-row
-// constants (S1, S2, mu, tau, lam, step0, lo, hi) sit in shared memory, read at
-// one address by the whole warp: a broadcast.
+// Design: W lanes per chain, W = p rounded up to a power of two (1 ... 32), so
+// 32 / W chains share a warp and lane i of a chain's W holds row i (lanes past p
+// are masked: they read row 0's constants and their terms enter no sum). Each
+// lane takes its own row's Philox word (word i % 4 of block (chain, sweep, 0,
+// i / 4)), its proposal, both truncnorm_logpdf terms and its log-density terms,
+// all rows at once; the sums then gather the terms across the chain's lanes
+// with width-W shuffles and add them one at a time in ascending row order, the
+// log density and the density correction interleaved. Every lane of a chain
+// carries the same log pi, accept decision and step scale (the accept uniform,
+// site 1, and the adaptation run on each). A row's constants (S1, S2, mu, tau,
+// lam, h0, step0, lo, hi) sit in its lane's registers; a chain's p stored floats
+// go out in one coalesced access. At rw_box's p = 32 a chain is a warp, 4096
+// chains about 31 warps an SM; at rw's p = 1 a lane is a chain, as before.
 //
-// What bounds it on an H100: latency. A sweep is a chain of dependent steps per
-// chain (p Philox blocks, the inverse-CDF normals or the erf pair, inverse erf
-// and two logs per truncated row, a log and an exp for the accept and the
-// adaptation), and a few thousand chains are one or two warps per SM, far too
-// few to hide it. Several chains per thread, or a few lanes per chain, is work
-// for a later change.
+// What bounds it on an H100: issue. A truncated sweep is about 630 issued warp
+// instructions a chain at p = 32 (the lanes' truncated draw and two log
+// densities, then 4p shuffles and adds); with 31 warps an SM the latency of
+// each chain's ascending sums is hidden behind the other warps.
 #include <cuda_runtime.h>
 
 #include "layout.cuh"
@@ -54,79 +60,93 @@ struct RwParams {
   float rate;
 };
 
-static constexpr int kThreads = 32;
+static constexpr int kThreads = 32;  // a warp a block: 4096 chains at p = 32 are 31 blocks an SM
 static constexpr int kMaxP = 32;
+static constexpr unsigned kFull = 0xffffffffu;
 
-// log pi(h) term by term, the JAX kernel's order.
-template <int P>
-__device__ __forceinline__ float log_post(const float* h, int p, float n_obs, float cnst, const float* s1,
-                                          const float* s2, const float* mu, const float* tau, const float* lam) {
+// v of row k of this lane's chain: a width-W shuffle
+template <int W>
+__device__ __forceinline__ float row_of(float v, int k) {
+  return W == 1 ? v : __shfl_sync(kFull, v, k, W);
+}
+
+// cnst - sum_k [lik_k + pri_k], one row at a time in ascending order (the JAX
+// kernel's order): total = total - lik_k - pri_k
+template <int W>
+__device__ __forceinline__ float log_post(float cnst, float lik, float pri, int p) {
   float total = cnst;
 #pragma unroll
-  for (int i = 0; i < (P > 0 ? P : p); ++i) {
-    const float quad = s2[i] - 2.0f * h[i] * s1[i] + n_obs * h[i] * h[i];
-    const float r = h[i] - mu[i];
-    total = total - 0.5f * tau[i] * quad - 0.5f * lam[i] * (r * r);
+  for (int k = 0; k < W; ++k) {
+    if (k < p) total = total - row_of<W>(lik, k) - row_of<W>(pri, k);
   }
   return total;
 }
 
-// P > 0: p == P, every loop unrolled; P == 0: the run's p (<= kMaxP), looped.
-template <int P, bool TRUNC>
+// This lane's row of log pi: the likelihood and prior terms, the JAX kernel's expressions.
+struct Terms {
+  float lik, pri;
+};
+
+__device__ __forceinline__ Terms row_terms(float h, float n_obs, float s1, float s2, float mu, float tau,
+                                           float lam) {
+  const float quad = s2 - 2.0f * h * s1 + n_obs * h * h;
+  const float r = h - mu;
+  return {0.5f * tau * quad, 0.5f * lam * (r * r)};
+}
+
+__device__ __forceinline__ uint32_t word_of(const Philox4& blk, int e) {
+  return (e & 2) ? ((e & 1) ? blk.x[3] : blk.x[2]) : ((e & 1) ? blk.x[1] : blk.x[0]);
+}
+
+template <int W, bool TRUNC>
 __global__ void __launch_bounds__(kThreads)
     random_walk_kernel(RwParams prm, const float* __restrict__ scal, float* __restrict__ out_h,
                        float* __restrict__ out_lp, float* __restrict__ out_acc, float* __restrict__ out_total,
                        float* __restrict__ out_log_step) {
-  constexpr int PA = P > 0 ? P : kMaxP;  // array extent
-  const int p = P > 0 ? P : prm.p;
-  __shared__ float s_s[9 * PA];
-  for (int i = threadIdx.x; i < (TRUNC ? 9 : 7) * p; i += blockDim.x) s_s[i] = scal[i];
-  __syncthreads();
-  const int chain = blockIdx.x * blockDim.x + threadIdx.x;
-  if (chain >= prm.n_chains) return;  // no block-wide barrier follows
-  const float *s1 = s_s, *s2 = s_s + p, *mu = s_s + 2 * p, *tau = s_s + 3 * p, *lam = s_s + 4 * p;
-  const float *h0 = s_s + 5 * p, *stp = s_s + 6 * p, *lo = s_s + 7 * p, *hi = s_s + 8 * p;
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int chain = g / W, i = g % W;  // W divides the warp, so a chain's lanes share it
+  const int p = prm.p;
+  const bool live = chain < prm.n_chains, row = i < p;
+  const int ic = row ? i : 0;
+  const float s1 = scal[ic], s2 = scal[p + ic], mu = scal[2 * p + ic], tau = scal[3 * p + ic],
+              lam = scal[4 * p + ic], stp = scal[6 * p + ic];
+  const float lo = TRUNC ? scal[7 * p + ic] : 0.0f, hi = TRUNC ? scal[8 * p + ic] : 0.0f;
+  const float n_obs = prm.n_obs;
 
-  float h[PA], hp[PA];
-#pragma unroll
-  for (int i = 0; i < p; ++i) h[i] = 0.0f + h0[i];
-  float lp = log_post<P>(h, p, prm.n_obs, prm.cnst, s1, s2, mu, tau, lam);
+  float h = 0.0f + scal[5 * p + ic];
+  const Terms t = row_terms(h, n_obs, s1, s2, mu, tau, lam);
+  float lp = log_post<W>(prm.cnst, t.lik, t.pri, p);
   float acc = 0.0f, log_scale = 0.0f;
 
   for (int it = 0; it < prm.n_sweeps; ++it) {
     const float scale = prm.adapt ? expf(log_scale) : 1.0f;
+    const float step = stp * scale;
+    const uint32_t bits = word_of(site_block(prm.seed, (uint32_t)chain, (uint32_t)it, 0u, (uint32_t)(i / 4)), i % 4);
+    float hp, fwd = 0.0f, rev = 0.0f;
+    if (TRUNC) {
+      hp = truncnorm_from_bits(h, step, lo, hi, bits);
+      fwd = truncnorm_logpdf(h, hp, step, lo, hi);
+      rev = truncnorm_logpdf(hp, h, step, lo, hi);
+    } else {
+      hp = h + step * normal_icdf_from_bits(bits);
+    }
+    const Terms tp = row_terms(hp, n_obs, s1, s2, mu, tau, lam);
+    // two independent ascending sums (unrolled, so their steps interleave): log
+    // pi(h') and the density correction, corr = corr + fwd_k - rev_k
+    const float lp_prop = log_post<W>(prm.cnst, tp.lik, tp.pri, p);
     float corr = 0.0f;
 #pragma unroll
-    for (int g = 0; g < (p + 3) / 4; ++g) {
-      const Philox4 blk = site_block(prm.seed, (uint32_t)chain, (uint32_t)it, 0u, (uint32_t)g);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * g + e;
-        if (i < p) {
-          const float step = stp[i] * scale;
-          if (TRUNC) {
-            hp[i] = truncnorm_from_bits(h[i], step, lo[i], hi[i], blk.x[e]);
-          } else {
-            hp[i] = h[i] + step * normal_icdf_from_bits(blk.x[e]);
-          }
-        }
+    for (int k = 0; k < W; ++k) {
+      if (TRUNC && k < p) {
+        corr = corr + row_of<W>(fwd, k);
+        corr = corr - row_of<W>(rev, k);
       }
     }
-    if (TRUNC) {
-#pragma unroll
-      for (int i = 0; i < p; ++i) {
-        const float step = stp[i] * scale;
-        corr = corr + truncnorm_logpdf(h[i], hp[i], step, lo[i], hi[i]);
-        corr = corr - truncnorm_logpdf(hp[i], h[i], step, lo[i], hi[i]);
-      }
-    }
-    const float lp_prop = log_post<P>(hp, p, prm.n_obs, prm.cnst, s1, s2, mu, tau, lam);
     const float log_accept = TRUNC ? lp_prop - lp + corr : lp_prop - lp;
     const float u = uniform_from_bits(site_block(prm.seed, (uint32_t)chain, (uint32_t)it, 1u, 0u).x[0]);
     const bool accept = logf(u) < log_accept;
     if (accept) {
-#pragma unroll
-      for (int i = 0; i < p; ++i) h[i] = hp[i];
+      h = hp;
       lp = lp_prop;
     }
     acc = acc + (accept ? 1.0f : 0.0f);
@@ -136,38 +156,34 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     const int idx = store_index(it, prm.n_burn, prm.n_thin);
-    if (idx < 0) continue;
+    if (idx < 0 || !live) continue;
     const size_t o = (size_t)chain * prm.n_keep + idx;
-    float* oh = out_h + o * p;
-#pragma unroll
-    for (int i = 0; i < p; ++i) oh[i] = h[i];
-    out_lp[o] = lp;
-    out_acc[o] = accept ? 1.0f : 0.0f;
+    if (row) out_h[o * p + i] = h;
+    if (i == 0) {
+      out_lp[o] = lp;
+      out_acc[o] = accept ? 1.0f : 0.0f;
+    }
   }
-  out_total[chain] = acc;
-  out_log_step[chain] = log_scale + prm.log_step0;
-}
-
-template <int P, bool TRUNC>
-static void launch(const RwParams& prm, const float* scal, float* out_h, float* out_lp, float* out_acc,
-                   float* out_total, float* out_log_step, cudaStream_t stream) {
-  const int blocks = (prm.n_chains + kThreads - 1) / kThreads;
-  random_walk_kernel<P, TRUNC><<<blocks, kThreads, 0, stream>>>(prm, scal, out_h, out_lp, out_acc, out_total,
-                                                                out_log_step);
+  if (live && i == 0) {
+    out_total[chain] = acc;
+    out_log_step[chain] = log_scale + prm.log_step0;
+  }
 }
 
 template <bool TRUNC>
 static void dispatch(const RwParams& prm, const float* scal, float* out_h, float* out_lp, float* out_acc,
                      float* out_total, float* out_log_step, cudaStream_t stream) {
-#define RW_CASE(P)                                                                           \
-  case P:                                                                                    \
-    launch<P, TRUNC>(prm, scal, out_h, out_lp, out_acc, out_total, out_log_step, stream); \
-    break;
-  switch (prm.p) {
-    RW_CASE(1) RW_CASE(2) RW_CASE(3) RW_CASE(4)
-    RW_CASE(5) RW_CASE(6) RW_CASE(7) RW_CASE(8)
-    default:
-      launch<0, TRUNC>(prm, scal, out_h, out_lp, out_acc, out_total, out_log_step, stream);
+#define RW_CASE(W)                                                                                    \
+  case W: {                                                                                           \
+    const int blocks = (int)(((long long)prm.n_chains * W + kThreads - 1) / kThreads);              \
+    random_walk_kernel<W, TRUNC><<<blocks, kThreads, 0, stream>>>(prm, scal, out_h, out_lp, out_acc, \
+                                                                  out_total, out_log_step);         \
+    break;                                                                                            \
+  }
+  int w = 1;
+  while (w < prm.p) w *= 2;
+  switch (w) {
+    RW_CASE(1) RW_CASE(2) RW_CASE(4) RW_CASE(8) RW_CASE(16) RW_CASE(32)
   }
 #undef RW_CASE
 }

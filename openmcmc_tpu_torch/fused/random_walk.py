@@ -19,11 +19,13 @@ log_step is that scale plus log(step[0]).
 
 :func:`rw_sweeps` runs all sweeps for all chains: on CUDA tensors it launches
 ``csrc/random_walk.cu``, on CPU tensors it takes :func:`rw_sweeps_plain`, the
-same sweep as a Python loop over sweeps vectorised over chains. Both evaluate
-every sum term by term in the JAX kernel's order: the likelihood form cancels
-heavily (S2 is about 1.4e5 at the reference's example 2), so another order would
-move log_post by far more than rounding. ``const`` and log(step[0]) are computed
-once on the host and handed to both.
+same sweep as a Python loop over sweeps vectorised over chains. The kernel
+gives each chain W lanes, p rounded up to a power of two, one row a lane: the
+rows' draws and terms run side by side and the sums gather them across the
+lanes. Both evaluate every sum term by term in the JAX kernel's order: the
+likelihood form cancels heavily (S2 is about 1.4e5 at the reference's example
+2), so another order would move log_post by far more than rounding. ``const``
+and log(step[0]) are computed once on the host and handed to both.
 
 Bits as in :mod:`openmcmc_tpu_torch.fused.prng`: site 0 holds the p proposal
 normals (truncated: the p truncated-draw uniforms, the JAX kernel's p single-row

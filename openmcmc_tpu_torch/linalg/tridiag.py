@@ -13,11 +13,15 @@ i % 4 for row i: site 0 gives u1 = (i24 + 1) 2^-24, site 1 gives u2 = i24 2^-24.
 not depend on the launch geometry.
 
 :func:`sample_canonical_tridiag` launches ``csrc/tridiag_canonical.cu`` on CUDA
-tensors and runs :func:`sample_canonical_tridiag_plain` on CPU tensors. Neither
-clamps a pivot (the TPU kernel does not; the JAX package's XLA factorisation
-clamps at 1e-30, and for a positive-definite Q the two agree). Not ported,
-because it exists for the TPU only: the BLOCK_B lane padding and the CHUNK-row
-identity padding.
+tensors and runs :func:`sample_canonical_tridiag_plain` on CPU tensors. The
+kernel reads a, c and b where they lie, as (B, P) rows with contiguous columns
+and a row stride each (the band rows of a batched ``Banded`` go in as views),
+and writes x as a contiguous (B, P) tensor; a block of 32 chains runs their
+recurrences on one consumer warp, fed by producer warps (the design is in the
+kernel's source). Neither clamps a pivot (the TPU kernel does not; the JAX
+package's XLA factorisation clamps at 1e-30, and for a positive-definite Q the
+two agree). Not ported, because it exists for the TPU only: the BLOCK_B lane
+padding and the CHUNK-row identity padding.
 """
 
 from __future__ import annotations
@@ -72,7 +76,16 @@ class TridiagParams(ctypes.Structure):
         ("call", ctypes.c_uint32),
         ("n_chains", ctypes.c_int32),
         ("p", ctypes.c_int32),
+        ("sa", ctypes.c_int64),
+        ("sc", ctypes.c_int64),
+        ("sb", ctypes.c_int64),
+        ("slot_rows", ctypes.c_int32),
+        ("n_slots", ctypes.c_int32),
     ]
+
+
+TILE = 128  # rows per tile of the kernel's ring (kTile)
+_CHAINS = 32  # chains per block (kChains)
 
 
 def _check(a, c, b):
@@ -83,32 +96,56 @@ def _check(a, c, b):
             raise ValueError(f"tridiagonal draw: {name} must match a's shape {tuple(a.shape)}, device and dtype")
 
 
+def _rows(t):
+    """t as (B, P) rows with contiguous columns and a non-negative row stride: a
+    view when it is one already (the band rows of a batched Banded), else a copy."""
+    return t if t.stride(1) == 1 and t.stride(0) >= 0 else t.contiguous()
+
+
+def launch_args(seed: int, call: int, a, c, b):
+    """The kernel's arguments for CUDA float32 (B, P) a, c, b: its parameters,
+    the rows as it reads them, a new contiguous x and the global scratch (the
+    tiles that leave the ring before the back pass: ld, u, c / ld and ~1 / ld
+    per row and chain; None at p <= 256, where no tile leaves it)."""
+    n_chains, p = a.shape
+    a, c, b = (_rows(t) for t in (a, c, b))
+    x = torch.empty((n_chains, p), dtype=a.dtype, device=a.device)
+    n_tiles = -(-p // TILE)
+    n_spill = -(-n_chains // _CHAINS) * max(n_tiles - 2, 0) * 4 * TILE * _CHAINS
+    scratch = torch.empty((n_spill,), dtype=a.dtype, device=a.device) if n_spill else None
+    prm = TridiagParams(seed=int(seed) & _MASK32, call=int(call), n_chains=n_chains, p=p, sa=a.stride(0),
+                        sc=c.stride(0), sb=b.stride(0), slot_rows=min(p, TILE), n_slots=1 if n_tiles == 1 else 2)
+    return prm, a, c, b, x, scratch
+
+
+def launch(prm, a, c, b, x, scratch):
+    """One launch on :func:`launch_args`' arguments, on the current stream; raises
+    if the launch is refused. Counts nothing."""
+    from openmcmc_tpu_torch import _build
+
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _build.library().tridiag_canonical_launch(
+            ctypes.byref(prm), a.data_ptr(), c.data_ptr(), b.data_ptr(), x.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stream,
+        )
+    _build.check(err, "tridiag_canonical")
+
+
 def sample_canonical_tridiag_kernel(seed: int, call: int, a, c, b):
     """Launch ``csrc/tridiag_canonical.cu`` on CUDA float32 tensors (arguments
-    as :func:`sample_canonical_tridiag_plain`). Launches on the current stream
-    and does not synchronise."""
+    as :func:`sample_canonical_tridiag_plain`). a, c and b are read in place as
+    (B, P) rows with their own row strides; x is a new contiguous (B, P)
+    tensor. Launches on the current stream and does not synchronise."""
     _check(a, c, b)
     if a.device.type != "cuda" or a.dtype != torch.float32:
         raise ValueError(f"tridiagonal kernel: expected CUDA float32 tensors, got {a.dtype} on {a.device}")
     if not 0 <= int(call) <= _MASK32:
         raise ValueError(f"tridiagonal kernel: call counter {call} does not fit 32 bits")
-    from openmcmc_tpu_torch import _build
-
-    n_chains, p = a.shape
-    # (P, B): consecutive chains on consecutive addresses on every row
-    at, ct, bt = (t.t().contiguous() for t in (a, c, b))
-    xt, ld, u = (torch.empty_like(at) for _ in range(3))
-    prm = TridiagParams(seed=int(seed) & _MASK32, call=int(call), n_chains=n_chains, p=p)
-    lib = _build.library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.tridiag_canonical_launch(
-            ctypes.byref(prm), at.data_ptr(), ct.data_ptr(), bt.data_ptr(), xt.data_ptr(), ld.data_ptr(),
-            u.data_ptr(), stream,
-        )
+    args = launch_args(seed, call, a, c, b)
     sample_canonical_tridiag_kernel.launches += 1
-    _build.check(err, "tridiag_canonical")
-    return xt.t()
+    launch(*args)
+    return args[4]
 
 
 sample_canonical_tridiag_kernel.launches = 0

@@ -106,24 +106,94 @@ def test_cuda_path_refuses_injected_bits(dev):
                                  logdet_d=0.0, a_lam=1.0, b_lam=1.0, a_tau=1.0, b_tau=1.0, n_burn=0, n_keep=1)
 
 
-@pytest.mark.parametrize("n_chains,p", [(8192, 100), (1000, 4099)], ids=["main_path", "ragged"])
-def test_tridiag_kernel_matches_plain(dev, n_chains, p):
-    """K3 against its plain version on the same Philox bits; rtol 1e-4, atol 1e-5."""
-    from openmcmc_tpu_torch.linalg import tridiag
-
-    rng = np.random.default_rng(p)
+def _tridiag_inputs(dev, n_chains, p, seed):
+    """Per-chain diagonally dominant tridiagonal Q = (a, c) and b on the card."""
+    rng = np.random.default_rng(seed)
     c = rng.uniform(-1.0, 1.0, (n_chains, p))
     c[:, -1] = 0.0
     a = 2.5 + rng.uniform(0.0, 3.0, (n_chains, p))
     b = rng.normal(size=(n_chains, p))
-    a, c, b = (torch.as_tensor(t, dtype=torch.float32, device=dev) for t in (a, c, b))
+    return [torch.as_tensor(t, dtype=torch.float32, device=dev) for t in (a, c, b)]
+
+
+@pytest.mark.parametrize("n_chains,p", [(8192, 100), (1000, 4099), (37, 300), (64, 4096)],
+                         ids=["main_path", "ragged", "three_tiles", "global_scratch"])
+def test_tridiag_kernel_matches_plain(dev, n_chains, p):
+    """K3 against its plain version on the same Philox bits; rtol 1e-4, atol 1e-5.
+    (37, 300) is ragged against the 32-chain blocks and spans three tiles (one
+    through the global scratch); (64, 4096) sends 30 tiles through it."""
+    from openmcmc_tpu_torch.linalg import tridiag
+
+    a, c, b = _tridiag_inputs(dev, n_chains, p, seed=p)
     before = tridiag.sample_canonical_tridiag_kernel.launches
     got = tridiag.sample_canonical_tridiag(3, 41, a, c, b)
     want = tridiag.sample_canonical_tridiag_plain(3, 41, a, c, b)
     torch.cuda.synchronize()
     assert tridiag.sample_canonical_tridiag_kernel.launches == before + 1
-    assert got.shape == (n_chains, p)
+    assert got.shape == (n_chains, p) and got.is_contiguous()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_tridiag_kernel_reads_band_rows_in_place(dev):
+    """K3 on the band rows of a (B, 2, p) Banded, row stride 2p, and a b with row
+    stride p + 3: the same draw as on contiguous copies, bit for bit, and the
+    plain version's within rtol 1e-4, atol 1e-5 (B = 45, p = 301)."""
+    from openmcmc_tpu_torch.linalg import tridiag
+
+    n_chains, p = 45, 301
+    a, c, b = _tridiag_inputs(dev, n_chains, p, seed=5)
+    bands = torch.stack([a, c], dim=1)
+    wide_b = torch.zeros((n_chains, p + 3), dtype=torch.float32, device=dev)
+    wide_b[:, 2 : p + 2] = b
+    av, cv, bv = bands[:, 0, :], bands[:, 1, :], wide_b[:, 2 : p + 2]
+    assert av.stride() == (2 * p, 1) and cv.stride() == (2 * p, 1) and bv.stride() == (p + 3, 1)
+    assert tridiag._rows(cv).data_ptr() == cv.data_ptr()
+    got = tridiag.sample_canonical_tridiag(9, 4, av, cv, bv)
+    copies = tridiag.sample_canonical_tridiag(9, 4, a, c, b)
+    want = tridiag.sample_canonical_tridiag_plain(9, 4, a, c, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, copies)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _tridiag_forward(a, c, b):
+    """One chain's forward recurrences in float32 as the plain version runs them:
+    l_i = c_{i-1} / ld_{i-1}, ld_i, w_i per row."""
+    ld_prev, w_prev = torch.tensor(1.0), torch.tensor(0.0)
+    ls, lds, ws = [], [], []
+    for i in range(a.shape[0]):
+        l_prev = (c[i - 1] if i else torch.tensor(0.0)) / ld_prev
+        ld = torch.sqrt(a[i] - l_prev * l_prev)
+        w = (b[i] - l_prev * w_prev) / ld
+        ls.append(l_prev)
+        lds.append(ld)
+        ws.append(w)
+        ld_prev, w_prev = ld, w
+    return torch.stack(ls), torch.stack(lds), torch.stack(ws)
+
+
+def test_tridiag_exact_redo_matches_plain(dev):
+    """K3 where its certificates fail: b at 1e-16 puts |ld w| below the certified
+    range, so every block reruns both passes with the IEEE operators; the draw
+    equals the plain version's bit for bit (100 chains, p 300: three tiles, one
+    through the global scratch). The precondition is checked first: chain 0's
+    forward divisions (l = c / ld_prev, w = (b - l w_prev) / ld) hold some
+    divisor outside [2^-30, 2^30] or some |divisor x quotient| outside
+    [2^-40, 2^40], the ranges ``div_certified`` accepts."""
+    from openmcmc_tpu_torch.linalg import tridiag
+
+    a, c, b = _tridiag_inputs(dev, 100, 300, seed=300)
+    b = b * 1e-16
+    l, ld, w = _tridiag_forward(a[0].cpu(), c[0].cpu(), b[0].cpu())
+    divisor = torch.cat([torch.cat([torch.ones(1), ld[:-1]]), ld])
+    bq = torch.abs(divisor * torch.cat([l, w]))[1:]  # row 0's l is not a division
+    divisor = torch.abs(divisor)[1:]
+    outside = (divisor < 2**-30) | (divisor > 2**30) | (bq < 2**-40) | (bq > 2**40)
+    assert bool(outside.any()), "the inputs no longer force the IEEE rerun"
+    got = tridiag.sample_canonical_tridiag(11, 6, a, c, b)
+    want = tridiag.sample_canonical_tridiag_plain(11, 6, a, c, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_generic_run_launches_k3_once_per_sweep(dev):
@@ -435,13 +505,19 @@ def _assert_mh_matches_plain(got, want, draw):
                      <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
 
 
-@pytest.mark.parametrize("p,variant", [(1, "plain"), (5, "truncated"), (32, "truncated_adapting"),
-                                       (12, "adapting")],
-                         ids=["p1_plain", "p5_truncated", "p32_truncated_adapting", "p12_adapting"])
-def test_random_walk_kernel_matches_plain(dev, p, variant):
-    """K7 against its plain version on the same Philox bits: 300 chains (ragged
-    against the 32-thread blocks), n_burn 6, n_keep 5, n_thin 2, unrolled
-    (p <= 8) and looped (p > 8) instantiations, both proposal variants."""
+@pytest.mark.parametrize("p,variant,n_chains", [
+    (1, "plain", 300), (5, "truncated", 300), (32, "truncated_adapting", 300), (12, "adapting", 300),
+    (2, "truncated_adapting", 37), (3, "truncated_adapting", 37), (17, "truncated_adapting", 37),
+    (31, "truncated_adapting", 37),
+], ids=["p1_plain", "p5_truncated", "p32_truncated_adapting", "p12_adapting", "p2_truncated_adapting",
+        "p3_truncated_adapting", "p17_truncated_adapting", "p31_truncated_adapting"])
+def test_random_walk_kernel_matches_plain(dev, p, variant, n_chains):
+    """K7 against its plain version on the same Philox bits: n_burn 6, n_keep 5,
+    n_thin 2, both proposal variants; 300 or 37 chains, ragged against the
+    128-thread blocks, at every lane width W (p rounded up to a power of two):
+    p = 1 a chain a lane, p = 2, 3 and 5 several chains a warp with lanes past
+    p masked, p = 12 and 17 masked lanes in a half or whole warp, p = 31 and 32
+    a warp a chain."""
     from openmcmc_tpu_torch.fused import random_walk as rw
 
     rng = np.random.default_rng(p)
@@ -451,11 +527,11 @@ def test_random_walk_kernel_matches_plain(dev, p, variant):
                           domain=box, device=dev)
     kw.update(adapt=variant.endswith("adapting"), target=0.3, rate=0.1, n_burn=6, n_keep=5, n_thin=2)
     before = rw.rw_sweeps_kernel.launches
-    got = rw.rw_sweeps(7, scal, 300, **kw)
-    want = rw.rw_sweeps_plain(7, scal, 300, **kw)
+    got = rw.rw_sweeps(7, scal, n_chains, **kw)
+    want = rw.rw_sweeps_plain(7, scal, n_chains, **kw)
     torch.cuda.synchronize()
     assert rw.rw_sweeps_kernel.launches == before + 1
-    assert tuple(got["h"].shape) == (300, 5, p)
+    assert tuple(got["h"].shape) == (n_chains, 5, p)
     _assert_mh_matches_plain(got, want, "h")
     if box is not None:
         assert float(got["h"].min()) >= -1.0 and float(got["h"].max()) <= 1.5

@@ -129,3 +129,36 @@ def test_shape_checks():
         tridiag.sample_canonical_tridiag(0, 0, a, c[:, :4], b)
     with pytest.raises(ValueError, match="non-empty"):
         tridiag.sample_canonical_tridiag(0, 0, a[0], c[0], b[0])
+
+
+def test_band_rows_in_place_match_copies_and_jax(monkeypatch):
+    """The draw on the band rows of a batched Banded, a = bands[:, 0] and
+    c = bands[:, 1] with row stride 2p, equals the draw on contiguous copies, and
+    the kernel's wrapper takes such rows as they are (a transposed tensor it
+    copies); then gmrf.sample_normal_canonical on that Banded, fed all-zero bits,
+    equals the JAX package's Pallas kernel in interpret mode (whose PRNG stub
+    returns zero bits) within rtol/atol 2e-4. B = 40, p = 13."""
+    from openmcmc_tpu.linalg.pallas_tridiag import _pallas_batched
+
+    n_chains, p = 40, 13
+    a, c, b = random_tridiag(n_chains, p, seed=21)
+    bands = torch.from_numpy(np.stack([a, c], axis=1))
+    av, cv, bt = bands[:, 0, :], bands[:, 1, :], torch.from_numpy(b)
+    assert av.stride() == (2 * p, 1) and not cv.is_contiguous()
+    got = tridiag.sample_canonical_tridiag(5, 2, av, cv, bt)
+    assert torch.equal(got, tridiag.sample_canonical_tridiag(5, 2, av.contiguous(), cv.contiguous(), bt))
+    assert tridiag._rows(cv).data_ptr() == cv.data_ptr()
+    transposed = torch.from_numpy(np.ascontiguousarray(a.T)).t()
+    assert tridiag._rows(transposed).is_contiguous() and not transposed.is_contiguous()
+
+    def zero_bits(seed, n, call, widths, device):
+        return [torch.zeros((n, w), dtype=torch.int64, device=device) for w in widths]
+
+    monkeypatch.setattr(prng, "sweep_bits", zero_bits)
+    key = tgmrf.Key(torch.Generator().manual_seed(0), seed=3, counter=8)
+    x = tgmrf.sample_normal_canonical(key, bt[:, :, None], Q=tst.Banded(bands))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(_pallas_batched(jnp.asarray([3], jnp.int32), jnp.asarray(a), jnp.asarray(c),
+                                          jnp.asarray(b)))
+    assert x.shape == (n_chains, p, 1)
+    np.testing.assert_allclose(x[..., 0].numpy(), want, rtol=2e-4, atol=2e-4)
