@@ -38,7 +38,10 @@ held against the generic driver's (the dense NormalNormal step, no kernel):
   sweeps), engine ``fused_linreg``, the unrolled-Cholesky kernel (K6);
 - ``linreg_wide``: the spectral engine at its limit (N = 2048, p = 256,
   Gamma(1, 1) scales, 4096 chains, 200 burn-in and 500 stored sweeps), engine
-  ``fused_linreg_spectral``, the spectral linear-regression kernel (K5).
+  ``fused_linreg_spectral``, the spectral linear-regression kernel (K5), which
+  writes each stored w, and the store kernel, which turns the stored rows into
+  beta = V w in place (one launch each; lam, tau and log_post bit for bit on
+  the check, the beta values that differ counted, the two kernels timed apart).
 
 Then the Metropolis family, each cell through ``MCMC.run(engine="auto")`` with
 one launch of its kernel, that kernel held against its plain version on a short
@@ -56,7 +59,11 @@ kernel) and, where there is one, the analytic posterior:
   burn-in and 1000 stored sweeps), engine ``fused_mmala``, the mMALA kernel (K8);
 - ``mmala_wide``: the spectral mMALA engine at its limit (N = 2048, p = 256,
   adaptation, 4096 chains, 200 burn-in and 500 stored sweeps), engine
-  ``fused_mmala_spectral``, the spectral mMALA kernel (K9).
+  ``fused_mmala_spectral``, the spectral mMALA kernel (K9) and the store kernel,
+  as in ``linreg_wide`` (log_post, accept decisions, accept_total and log_step
+  bit for bit). Then ``spectral_store`` holds the store kernel alone against
+  the plain product on the w rows of a whole ``linreg_wide`` run and times it
+  beside ``torch.matmul``.
 
 Then the Gaussian mixture, each cell through ``MCMC.run(engine="auto")`` with
 one launch of the mixture kernel (K10), that kernel held against its plain
@@ -137,6 +144,8 @@ REPLACES = {
     "random_walk": "openmcmc_tpu/fused/random_walk.py:46",
     "mmala": "openmcmc_tpu/fused/mmala.py:49",
     "spectral_mmala": "openmcmc_tpu/fused/spectral.py:655",
+    # the stores inside K5 and K9: their block products w V' on the MXU (:174-177, :755-758)
+    "spectral_store": "openmcmc_tpu/fused/spectral.py:174",
     "mixture": "openmcmc_tpu/fused/mixture.py:107",
     "gamma_elem_draws": "openmcmc_tpu/fused/prng.py:218",
     "rj": "openmcmc_tpu/fused/rj.py:_make_kernel",
@@ -516,7 +525,8 @@ def _wrappers():
             "linreg": linreg.linreg_sweeps_kernel, "spectral_linreg": spectral.spectral_linreg_sweeps_kernel,
             "random_walk": random_walk.rw_sweeps_kernel, "mmala": mmala.mmala_sweeps_kernel,
             "spectral_mmala": spectral.spectral_mmala_sweeps_kernel, "mixture": mixture.mixture_sweeps_kernel,
-            "gamma_elem_draws": prng.gamma_elem_draws, "rj": rj.rj_sweeps_kernel, "gamma": gamma.gamma_kernel}
+            "gamma_elem_draws": prng.gamma_elem_draws, "rj": rj.rj_sweeps_kernel, "gamma": gamma.gamma_kernel,
+            "spectral_store": spectral.spectral_store_kernel}
 
 
 def reset_launches():
@@ -529,9 +539,10 @@ def read_launches():
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def only(name, count):
-    """The launch counts of a path that launches kernel ``name`` ``count`` times and no other."""
-    return {k: (count if k == name else 0) for k in _wrappers()}
+def only(name, count, **others):
+    """The launch counts of a path that launches kernel ``name`` ``count`` times,
+    each of ``others`` its given count, and no other."""
+    return {k: (count if k == name else others.get(k, 0)) for k in _wrappers()}
 
 
 def check_store(res, path):
@@ -1173,10 +1184,10 @@ def linreg_moments(res, chunk_size):
                     "log_lambda": torch.log(res.store["lambda"][..., 0])}, chunk_size)
 
 
-def linreg_cell(tag, mcmc, engine, kernel):
+def linreg_cell(tag, mcmc, engine, kernel, **others):
     """One linear-regression cell's run: MCMC.run(engine="auto") with the counts
-    at 0 around it, one launch of ``kernel`` and no other, the store's shape and
-    finiteness."""
+    at 0 around it, one launch of ``kernel``, ``others`` (the counts of any other
+    kernel the path launches) and no other, the store's shape and finiteness."""
     n_chains, n_iter, p = mcmc.n_chains, mcmc.n_iter, mcmc.data["X"].shape[1]
     reset_launches()
     t0 = time.perf_counter()
@@ -1184,7 +1195,7 @@ def linreg_cell(tag, mcmc, engine, kernel):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    if res.engine != engine or launches != only(kernel, 1):
+    if res.engine != engine or launches != only(kernel, 1, **others):
         raise AssertionError(f"{tag}: engine {res.engine}, kernel launches {launches}")
     shapes = {"beta": (n_chains, n_iter, p, 1), "tau": (n_chains, n_iter, 1, 1), "lambda": (n_chains, n_iter, 1, 1)}
     if {k: tuple(v.shape) for k, v in res.store.items()} != shapes or tuple(res.log_post.shape) != (n_chains, n_iter):
@@ -1198,11 +1209,13 @@ def linreg_cell(tag, mcmc, engine, kernel):
     return res, launches
 
 
-def linreg_checks(tag, mcmc, res, kernel_fn, plain_fn, args, kw, short, gen_mcmc, chunk_size):
+def linreg_checks(tag, mcmc, res, kernel_fn, plain_fn, args, kw, short, gen_mcmc, chunk_size, exact=False):
     """The kernel against its plain version on a short run at full width
-    (>= 99.9 % of chains agree), and the fused run's posterior means of beta,
-    tau and log lambda against the generic twin's (within 5 MC sd), which
-    launches no kernel (the dense NormalNormal step)."""
+    (>= 99.9 % of chains agree; with ``exact`` every chain's lam, tau and
+    log_post bit for bit), the count of beta values that differ from the plain
+    version's, and the fused run's posterior means of beta, tau and log lambda
+    against the generic twin's (within 5 MC sd), which launches no kernel (the
+    dense NormalNormal step)."""
     fused = linreg_moments(res, chunk_size)
     ess_beta = float(fused["beta"][2].mean())
     del res
@@ -1210,10 +1223,15 @@ def linreg_checks(tag, mcmc, res, kernel_fn, plain_fn, args, kw, short, gen_mcmc
     got = kernel_fn(mcmc.seed, *args, **kw, **short)
     want, plain_ms = cuda_call_ms(lambda: plain_fn(mcmc.seed, *args, **kw, **short))
     agree, err = compare(got, want, draw="beta")
+    same = equal_chains(got, want, ("lam", "tau", "log_post"))
+    beta_diff = int((got["beta"] != want["beta"]).sum())
     del got, want
     n_chains = mcmc.n_chains
     if agree < 0.999 * n_chains:
         raise AssertionError(f"{tag}: only {agree} of {n_chains} chains agree with the plain version")
+    if exact and same != n_chains:
+        raise AssertionError(f"{tag}: lam, tau and log_post of only {same} of {n_chains} chains equal the plain "
+                             "version's bit for bit")
     reset_launches()
     t0 = time.perf_counter()
     gen = gen_mcmc.run()
@@ -1228,14 +1246,60 @@ def linreg_checks(tag, mcmc, res, kernel_fn, plain_fn, args, kw, short, gen_mcmc
     if not z < 5.0:
         raise AssertionError(f"{tag}: posterior means off the generic run's by {z:.2f} MC sd")
     log(tag, f"kernel and plain version agree on {agree} of {n_chains} chains at n_burn {short['n_burn']}, n_iter "
-        f"{short['n_keep']} (rtol 1e-4), max abs err {err:.3g}; means of beta, tau, log lambda within {z:.2f} MC sd "
+        f"{short['n_keep']} (rtol 1e-4; lam, tau and log_post of {same} bit for bit), max abs err {err:.3g}, "
+        f"{beta_diff} beta values differ; means of beta, tau, log lambda within {z:.2f} MC sd "
         f"of the generic run's (limit 5; generic run of {gen_mcmc.n_chains} chains, {gen_mcmc.n_burn} + "
         f"{gen_mcmc.n_iter} sweeps, {gen_wall:.3f} s); mean ESS of beta {ess_beta:.1f} over "
         f"{n_chains * mcmc.n_iter} draws")
-    return err, plain_ms, ess_beta
+    return err, plain_ms, ess_beta, {"bit_identical_chains": same, "beta_values_differing": beta_diff}
 
 
-def linreg_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n_in, ess_beta, plain_ms, reps):
+def split_ms(call, reps):
+    """Medians of ``reps`` calls of a spectral sweep wrapper (K5 or K9): the whole
+    call, its sweep kernel (from the call's start to the store's) and its store
+    kernel (the store wrapper's launches), all by CUDA events on one stream."""
+    from openmcmc_tpu_torch.fused import spectral
+
+    whole, sweep, store = [], [], []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with launch_events(spectral, "spectral_store_kernel") as marks:
+            start.record()
+            out = call()
+            stop.record()
+            torch.cuda.synchronize()
+        if len(marks) != 1:
+            raise AssertionError(f"a spectral sweep wrapper called the store {len(marks)} times")
+        whole.append(start.elapsed_time(stop))
+        sweep.append(start.elapsed_time(marks[0][0]))
+        store.append(marks[0][0].elapsed_time(marks[0][1]))
+        del out
+    return tuple(statistics.median(v) for v in (whole, sweep, store))
+
+
+def run_times(kernel_fn, seed, args, kw, run_hyp, short, reps, split):
+    """The kernel's time on the whole run (with ``split``, also its sweep and
+    store kernels'), on the same sweeps with one stored draw, and on the plain
+    version's short run, by CUDA events, medians of ``reps``."""
+    n_sweeps = run_hyp["n_burn"] + run_hyp["n_keep"] * run_hyp["n_thin"]
+    if split:
+        run_ms, sweep_ms, store_ms = split_ms(lambda: kernel_fn(seed, *args, **kw, **run_hyp), reps)
+        parts = {"run_sweep_ms": sweep_ms, "run_store_ms": store_ms}
+    else:
+        run_ms, parts = cuda_ms(lambda: kernel_fn(seed, *args, **kw, **run_hyp), reps), {}
+    # the same sweeps with one stored draw: the rest of run_ms is the stores' share
+    sweeps_ms = cuda_ms(lambda: kernel_fn(seed, *args, **kw, n_burn=n_sweeps - 1, n_keep=1, n_thin=1), reps)
+    ms = cuda_ms(lambda: kernel_fn(seed, *args, **kw, **short), reps)
+    return run_ms, parts, sweeps_ms, ms
+
+
+def split_text(parts):
+    return (f" (sweep kernel {parts['run_sweep_ms']:.4f} ms, store kernel {parts['run_store_ms']:.4f} ms)"
+            if parts else "")
+
+
+def linreg_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n_in, ess_beta, plain_ms, reps,
+                 split=False):
     """The kernel's time on the whole run and on the plain version's short run
     (CUDA events, median of ``reps``), MCMC.run end to end, the bounds."""
     n_chains, p = mcmc.n_chains, mcmc.data["X"].shape[1]
@@ -1246,11 +1310,8 @@ def linreg_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n
         n_flop = n_chains * flop_fn(n_sweeps, n_keep)
         return (*bound(n_bytes, n_flop), n_flop, n_bytes)
 
-    run_ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, **run_hyp), reps)
-    # the same sweeps with one stored draw: the rest of run_ms is the stores' share
+    run_ms, parts, sweeps_ms, ms = run_times(kernel_fn, mcmc.seed, args, kw, run_hyp, short, reps, split)
     n_sweeps = run_hyp["n_burn"] + run_hyp["n_keep"] * run_hyp["n_thin"]
-    sweeps_ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, n_burn=n_sweeps - 1, n_keep=1, n_thin=1), reps)
-    ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, **short), reps)
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -1261,14 +1322,15 @@ def linreg_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n
     e2e = statistics.median(walls)
     run_bound = bound_of(run_hyp)
     bound_ms, bound_by, n_flop, n_bytes = bound_of(short)
-    log(tag, f"{smi}: kernel {run_ms:.4f} ms for the whole run (median of {reps}), bound {run_bound[0]:.4f} ms "
-        f"({run_bound[1]}: {run_bound[2]:.3g} FLOP, {run_bound[3]:.3g} B); MCMC.run end to end {1e3 * e2e:.3f} ms "
-        f"(median of {reps}); the same {n_sweeps} sweeps with one stored draw {sweeps_ms:.4f} ms")
+    log(tag, f"{smi}: kernel {run_ms:.4f} ms for the whole run (median of {reps}){split_text(parts)}, bound "
+        f"{run_bound[0]:.4f} ms ({run_bound[1]}: {run_bound[2]:.3g} FLOP, {run_bound[3]:.3g} B); MCMC.run end to end "
+        f"{1e3 * e2e:.3f} ms (median of {reps}); the same {n_sweeps} sweeps with one stored draw {sweeps_ms:.4f} ms")
     log(tag, f"{smi}: at n_burn {short['n_burn']}, n_iter {short['n_keep']}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms "
         f"(the check's call), bound {bound_ms:.5f} ms ({bound_by}: {n_flop:.3g} FLOP, {n_bytes:.3g} B)")
     log(tag, f"{smi}: ESS/s of beta {ess_beta / (run_ms / 1e3):.4g} on kernel time, {ess_beta / e2e:.4g} end to end")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "run_ms": run_ms, "run_bound_ms": run_bound[0], "run_bound_by": run_bound[1], "run_e2e_ms": 1e3 * e2e}
+            "run_ms": run_ms, **parts, "run_bound_ms": run_bound[0], "run_bound_by": run_bound[1],
+            "run_e2e_ms": 1e3 * e2e}
 
 
 def linreg_phase(dev, smi):
@@ -1291,8 +1353,8 @@ def linreg_phase(dev, smi):
     kw = dict(n_obs=float(R_N), a_lam=1e-3, b_lam=1e-3, a_tau=1e-3, b_tau=1e-3)
     short = dict(n_burn=20, n_keep=30, n_thin=1)
     gen = linreg_mcmc(dev, X, y, R_CHAINS, R_GEN_BURN, R_GEN_ITER, R_SEED, 1e-3, 1e-3)
-    err, plain_ms, ess_beta = linreg_checks(tag, mcmc, res, linreg.linreg_sweeps_kernel,
-                                            linreg.linreg_sweeps_plain, args, kw, short, gen, chunk_size=8)
+    err, plain_ms, ess_beta, same = linreg_checks(tag, mcmc, res, linreg.linreg_sweeps_kernel,
+                                                  linreg.linreg_sweeps_plain, args, kw, short, gen, chunk_size=8)
 
     def flop(n_sweeps, n_keep):
         return n_sweeps * k6_flop_per_sweep(p) + n_keep * K6_FLOP_PER_STORE
@@ -1300,18 +1362,21 @@ def linreg_phase(dev, smi):
     entry = linreg_times(smi, tag, mcmc, linreg.linreg_sweeps_kernel, args, kw,
                          dict(n_burn=R_BURN, n_keep=R_ITER, n_thin=1), short, flop, p * p + 3 * p + 3, ess_beta,
                          plain_ms, reps=5)
-    return {"launches": launches["linreg"], "max_abs_err": err, **entry}
+    return {"launches": launches["linreg"], "max_abs_err": err, **same, **entry}
 
 
 def linreg_wide_phase(dev, smi):
-    """p = 256: one K5 launch, K5 against its plain version on 2 + 3 sweeps at
-    full width, posterior means against a generic run of 256 chains, times."""
+    """p = 256: one K5 launch and one of its store, K5 against its plain version
+    on 2 + 3 sweeps at full width (lam, tau and log_post bit for bit), posterior
+    means against a generic run of 256 chains, times with the sweep and store
+    kernels apart. Also returns the stored w rows the store kernel turned into
+    beta on a whole run, and V, for the store phase."""
     from openmcmc_tpu_torch.fused import spectral
 
     tag = "linreg_wide"
     X, y = wide_data()
     mcmc = linreg_mcmc(dev, X, y, W_CHAINS, W_BURN, W_ITER, W_SEED, 1.0, 1.0)
-    res, launches = linreg_cell(tag, mcmc, "fused_linreg_spectral", "spectral_linreg")
+    res, launches = linreg_cell(tag, mcmc, "fused_linreg_spectral", "spectral_linreg", spectral_store=1)
     # K5's inputs as the dispatcher feeds them
     prep = spectral.prepare_linreg(mcmc.data["X"], mcmc.data["y"][:, 0], mu=np.zeros(W_P),
                                    plam_diag=mcmc.data["P_lambda"].diag_, ptau_diag=mcmc.data["P_tau"].diag_)
@@ -1322,17 +1387,77 @@ def linreg_wide_phase(dev, smi):
     kw.update(n_obs=float(W_N), a_lam=1.0, b_lam=1.0, a_tau=1.0, b_tau=1.0)
     short = dict(n_burn=2, n_keep=3, n_thin=1)
     gen = linreg_mcmc(dev, X, y, W_GEN_CHAINS, W_GEN_BURN, W_GEN_ITER, W_SEED, 1.0, 1.0)
-    err, plain_ms, ess_beta = linreg_checks(tag, mcmc, res, spectral.spectral_linreg_sweeps_kernel,
-                                            spectral.spectral_linreg_sweeps_plain, args, kw, short, gen,
-                                            chunk_size=32)
+    err, plain_ms, ess_beta, same = linreg_checks(tag, mcmc, res, spectral.spectral_linreg_sweeps_kernel,
+                                                  spectral.spectral_linreg_sweeps_plain, args, kw, short, gen,
+                                                  chunk_size=32, exact=True)
 
     def flop(n_sweeps, n_keep):
         return n_sweeps * (K5_FLOP_PER_COORD * W_P + K5_FLOP_PER_SWEEP) + n_keep * (2 * W_P * W_P + K5_FLOP_PER_STORE)
 
-    entry = linreg_times(smi, tag, mcmc, spectral.spectral_linreg_sweeps_kernel, args, kw,
-                         dict(n_burn=W_BURN, n_keep=W_ITER, n_thin=1), short, flop, W_P * W_P + 3 * W_P, ess_beta,
-                         plain_ms, reps=3)
-    return {"launches": launches["spectral_linreg"], "max_abs_err": err, **entry}
+    run_hyp = dict(n_burn=W_BURN, n_keep=W_ITER, n_thin=1)
+    entry = linreg_times(smi, tag, mcmc, spectral.spectral_linreg_sweeps_kernel, args, kw, run_hyp, short, flop,
+                         W_P * W_P + 3 * W_P, ess_beta, plain_ms, reps=3, split=True)
+    with store_inputs(spectral) as rows:
+        spectral.spectral_linreg_sweeps_kernel(mcmc.seed, *args, **kw, **run_hyp)
+    return {"launches": launches["spectral_linreg"], "max_abs_err": err, **same, **entry}, \
+        launches["spectral_store"], rows[0], args[0]
+
+
+@contextlib.contextmanager
+def store_inputs(module):
+    """Copies of the rows handed to ``module.spectral_store_kernel`` (its w, before
+    the kernel turns them into beta in place) while the body runs; the wrapper
+    is itself again during each call, so it counts its launch on itself."""
+    real, rows = module.spectral_store_kernel, []
+
+    def spy(w, V):
+        rows.append(w.clone())
+        module.spectral_store_kernel = real
+        try:
+            return real(w, V)
+        finally:
+            module.spectral_store_kernel = spy
+
+    module.spectral_store_kernel = spy
+    try:
+        yield rows
+    finally:
+        module.spectral_store_kernel = real
+
+
+def store_phase(smi, w, V, launches):
+    """The store kernel alone at the main path's shape, on the w rows of a whole
+    K5 run: against the plain product (rtol 1e-5, atol 1e-5; the count of values
+    that differ), its time (a fresh copy of the rows before each call, outside
+    the events), the plain version's and torch.matmul's, and its bound."""
+    from openmcmc_tpu_torch.fused import spectral
+
+    w = w.reshape(-1, w.shape[-1])
+    n_rows, p = w.shape
+    got = spectral.spectral_store_kernel(w.clone(), V)
+    want = spectral.spectral_store_plain(w, V)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5) or not bool(torch.all(torch.isfinite(got))):
+        raise AssertionError("spectral_store: the kernel differs from the plain product")
+    err, differing = float(torch.max(torch.abs(got - want))), int((got != want).sum())
+    del got, want
+    buf, times = torch.empty_like(w), []
+    for _ in range(6):
+        buf.copy_(w)
+        times.append(cuda_call_ms(lambda: spectral.spectral_store_kernel(buf, V))[1])
+    ms = statistics.median(times[1:])
+    del buf
+    plain_ms = cuda_ms(lambda: spectral.spectral_store_plain(w, V), 5)
+    library_ms = cuda_ms(lambda: torch.matmul(w, V.T), 5)
+    n_flop, n_bytes = 2.0 * n_rows * p * p, 4.0 * (2 * n_rows * p + p * p)
+    bound_ms, bound_by = bound(n_bytes, n_flop)
+    log("spectral_store", f"{n_rows} rows, p = {p}, in place: {differing} values differ from the plain product, max "
+        f"abs err {err:.3g}; {smi}: kernel {ms:.4f} ms (median of 5, {n_flop / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, torch.matmul {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_flop:.3g} "
+        f"FLOP, {n_bytes:.3g} B)")
+    return {"launches": sum(launches.values()), "launches_by_path": launches, "max_abs_err": err,
+            "values_differing": differing, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def rw_mcmc(dev, kind, n_chains=None, n_burn=None, n_iter=None):
@@ -1423,10 +1548,11 @@ def compare_mh(got, want, draw):
     return int(ok.sum()), float(torch.max(torch.abs(g - w)))
 
 
-def mh_cell(tag, mcmc, engine, kernel, name):
+def mh_cell(tag, mcmc, engine, kernel, name, **others):
     """One Metropolis cell's run: MCMC.run(engine="auto") with the counts at 0
-    around it, one launch of ``kernel`` and no other, the store's shape and
-    finiteness, the statistics' shapes."""
+    around it, one launch of ``kernel``, ``others`` (the counts of any other
+    kernel the path launches) and no other, the store's shape and finiteness,
+    the statistics' shapes."""
     n_chains, n_iter, p = mcmc.n_chains, mcmc.n_iter, mcmc.initial_chain_state[name].shape[0]
     reset_launches()
     t0 = time.perf_counter()
@@ -1434,7 +1560,7 @@ def mh_cell(tag, mcmc, engine, kernel, name):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    if res.engine != engine or launches != only(kernel, 1):
+    if res.engine != engine or launches != only(kernel, 1, **others):
         raise AssertionError(f"{tag}: engine {res.engine}, kernel launches {launches}")
     draws = res.store[name]
     if tuple(draws.shape) != (n_chains, n_iter, p, 1) or tuple(res.log_post.shape) != (n_chains, n_iter):
@@ -1452,9 +1578,11 @@ def mh_cell(tag, mcmc, engine, kernel, name):
 
 
 def mh_checks(tag, mcmc, res, name, kernel_fn, plain_fn, args, kw, short, gen_mcmc, draw, chunk_size, exact=None,
-              keep_from=0):
+              keep_from=0, bits=False):
     """The kernel against its plain version on a short run at full width
-    (>= 99.9 % of chains agree), the fused run's posterior means against the
+    (>= 99.9 % of chains agree; with ``bits`` every chain's log_post, accept
+    decisions, accept_total and log_step bit for bit), the count of draws that
+    differ from the plain version's, the fused run's posterior means against the
     generic twin's (which launches no kernel) and, given ``exact`` = (mean, sd),
     against the analytic posterior over the draws from ``keep_from`` on, each
     within 5 MC sd."""
@@ -1473,10 +1601,15 @@ def mh_checks(tag, mcmc, res, name, kernel_fn, plain_fn, args, kw, short, gen_mc
     want, plain_ms = cuda_call_ms(lambda: plain_fn(mcmc.seed, *args, **kw, **short))
     agree, err = compare_mh(got, want, draw)
     same = equal_chains(got, want, (draw, "log_post", "accept", "accept_total", "log_step"))
+    same_rest = equal_chains(got, want, ("log_post", "accept", "accept_total", "log_step"))
+    draw_diff = int((got[draw] != want[draw]).sum())
     del got, want
     n_chains = mcmc.n_chains
     if agree < 0.999 * n_chains:
         raise AssertionError(f"{tag}: only {agree} of {n_chains} chains agree with the plain version")
+    if bits and same_rest != n_chains:
+        raise AssertionError(f"{tag}: log_post, accept, accept_total and log_step of only {same_rest} of {n_chains} "
+                             "chains equal the plain version's bit for bit")
     reset_launches()
     t0 = time.perf_counter()
     gen = gen_mcmc.run()
@@ -1492,19 +1625,21 @@ def mh_checks(tag, mcmc, res, name, kernel_fn, plain_fn, args, kw, short, gen_mc
     if not z < 5.0:
         raise AssertionError(f"{tag}: posterior means off the generic run's by {z:.2f} MC sd")
     log(tag, f"kernel and plain version agree on {agree} of {n_chains} chains at n_burn {short['n_burn']}, n_iter "
-        f"{short['n_keep']} (rtol 1e-4, every accept decision; {same} bit for bit), max abs err {err:.3g}; "
-        f"means of {name} within "
+        f"{short['n_keep']} (rtol 1e-4, every accept decision; {same} bit for bit, {same_rest} without {draw}), max "
+        f"abs err {err:.3g}, {draw_diff} {draw} values differ; means of {name} within "
         f"{z:.2f} MC sd of the generic run's (limit 5; generic run of {gen_mcmc.n_chains} chains, {gen_mcmc.n_burn} + "
         f"{gen_mcmc.n_iter} sweeps, {gen_wall:.3f} s, acceptance {gen_acc:.2f} %)"
         + ("" if exact_z is None else f" and within {exact_z:.2f} MC sd of the analytic posterior")
         + f"; mean ESS of {name} {ess:.1f} over {n_chains * mcmc.n_iter} draws")
-    return err, plain_ms, ess, same
+    return err, plain_ms, ess, same, {"bit_identical_chains": same, f"{draw}_values_differing": draw_diff}
 
 
-def mh_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n_in, p, ess, acc, plain_ms, reps):
-    """The kernel's time on the whole run, on the same sweeps with one stored
-    draw and on the plain version's short run (CUDA events, median of ``reps``),
-    MCMC.run end to end, the bounds."""
+def mh_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n_in, p, ess, acc, plain_ms, reps,
+             split=False):
+    """The kernel's time on the whole run (with ``split``, its sweep and store
+    kernels apart), on the same sweeps with one stored draw and on the plain
+    version's short run (CUDA events, median of ``reps``), MCMC.run end to end,
+    the bounds."""
     n_chains = mcmc.n_chains
 
     def bound_of(h):
@@ -1513,10 +1648,8 @@ def mh_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n_in,
         n_flop = n_chains * flop_fn(n_sweeps, n_keep)
         return (*bound(n_bytes, n_flop), n_flop, n_bytes)
 
-    run_ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, **run_hyp), reps)
+    run_ms, parts, sweeps_ms, ms = run_times(kernel_fn, mcmc.seed, args, kw, run_hyp, short, reps, split)
     n_sweeps = run_hyp["n_burn"] + run_hyp["n_keep"] * run_hyp["n_thin"]
-    sweeps_ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, n_burn=n_sweeps - 1, n_keep=1, n_thin=1), reps)
-    ms = cuda_ms(lambda: kernel_fn(mcmc.seed, *args, **kw, **short), reps)
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -1527,15 +1660,16 @@ def mh_times(smi, tag, mcmc, kernel_fn, args, kw, run_hyp, short, flop_fn, n_in,
     e2e = statistics.median(walls)
     run_bound = bound_of(run_hyp)
     bound_ms, bound_by, n_flop, n_bytes = bound_of(short)
-    log(tag, f"{smi}: kernel {run_ms:.4f} ms for the whole run (median of {reps}), bound {run_bound[0]:.4f} ms "
-        f"({run_bound[1]}: {run_bound[2]:.3g} FLOP, {run_bound[3]:.3g} B); MCMC.run end to end {1e3 * e2e:.3f} ms "
-        f"(median of {reps}); the same {n_sweeps} sweeps with one stored draw {sweeps_ms:.4f} ms")
+    log(tag, f"{smi}: kernel {run_ms:.4f} ms for the whole run (median of {reps}){split_text(parts)}, bound "
+        f"{run_bound[0]:.4f} ms ({run_bound[1]}: {run_bound[2]:.3g} FLOP, {run_bound[3]:.3g} B); MCMC.run end to end "
+        f"{1e3 * e2e:.3f} ms (median of {reps}); the same {n_sweeps} sweeps with one stored draw {sweeps_ms:.4f} ms")
     log(tag, f"{smi}: at n_burn {short['n_burn']}, n_iter {short['n_keep']}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms "
         f"(the check's call), bound {bound_ms:.5f} ms ({bound_by}: {n_flop:.3g} FLOP, {n_bytes:.3g} B)")
     log(tag, f"{smi}: acceptance {acc:.2f} %; ESS/s {ess / (run_ms / 1e3):.4g} on kernel time, {ess / e2e:.4g} "
         "end to end")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "run_ms": run_ms, "run_bound_ms": run_bound[0], "run_bound_by": run_bound[1], "run_e2e_ms": 1e3 * e2e}
+            "run_ms": run_ms, **parts, "run_bound_ms": run_bound[0], "run_bound_by": run_bound[1],
+            "run_e2e_ms": 1e3 * e2e}
 
 
 def rw_phase(dev, smi, kind):
@@ -1563,9 +1697,9 @@ def rw_phase(dev, smi, kind):
     else:
         short, exact, chunk = dict(n_burn=20, n_keep=30, n_thin=1), None, 32
         gen = rw_mcmc(dev, kind, n_chains=B_GEN_CHAINS, n_burn=B_GEN_BURN, n_iter=B_GEN_ITER)
-    err, plain_ms, ess, same = mh_checks(kind, mcmc, res, "h", rw.rw_sweeps_kernel, rw.rw_sweeps_plain,
-                                         (scal, mcmc.n_chains), kw, short, gen, "h", chunk, exact=exact,
-                                         keep_from=200)
+    err, plain_ms, ess, same, _ = mh_checks(kind, mcmc, res, "h", rw.rw_sweeps_kernel, rw.rw_sweeps_plain,
+                                            (scal, mcmc.n_chains), kw, short, gen, "h", chunk, exact=exact,
+                                            keep_from=200)
     per_coord = K7_FLOP_PER_TRUNC_COORD if box is not None else K7_FLOP_PER_COORD
 
     def flop(n_sweeps, n_keep):
@@ -1587,15 +1721,17 @@ def st_diag(value, p):
 
 
 def mmala_phase(dev, smi, wide):
-    """``mmala`` (K8, p = 5) or ``mmala_wide`` (K9, p = 256): one launch, the
-    kernel against its plain version, posterior means against the generic twin's
-    and the analytic posterior c = A^-1 v."""
+    """``mmala`` (K8, p = 5) or ``mmala_wide`` (K9, p = 256, and its store): one
+    launch each, the kernel against its plain version (K9: log_post, accept
+    decisions, accept_total and log_step bit for bit), posterior means against
+    the generic twin's and the analytic posterior c = A^-1 v; K9's times with
+    the sweep and store kernels apart."""
     from openmcmc_tpu_torch.fused import mmala, spectral
 
     tag = "mmala_wide" if wide else "mmala"
     mcmc = mmala_mcmc(dev, wide)
     engine, kernel = ("fused_mmala_spectral", "spectral_mmala") if wide else ("fused_mmala", "mmala")
-    res, launches, acc = mh_cell(tag, mcmc, engine, kernel, "beta")
+    res, launches, acc = mh_cell(tag, mcmc, engine, kernel, "beta", **({"spectral_store": 1} if wide else {}))
     sampler = mcmc.samplers[0]
     N, p = mcmc.data["X"].shape
     host = dict(tau=1.0, lam=1.0, ptau_diag=mcmc.data["P"].diag_, plam_diag=mcmc.data["P0"].diag_,
@@ -1623,11 +1759,12 @@ def mmala_phase(dev, smi, wide):
 
         def flop(n_sweeps, n_keep):
             return n_sweeps * k8_flop_per_sweep(p)
-    err, plain_ms, ess, _ = mh_checks(tag, mcmc, res, "beta", kernel_fn, plain_fn, args, kw, short, gen, "beta", chunk,
-                                      exact=mmala_posterior(wide))
+    err, plain_ms, ess, _, same = mh_checks(tag, mcmc, res, "beta", kernel_fn, plain_fn, args, kw, short, gen, "beta",
+                                            chunk, exact=mmala_posterior(wide), bits=wide)
     entry = mh_times(smi, tag, mcmc, kernel_fn, args, kw, dict(n_burn=mcmc.n_burn, n_keep=mcmc.n_iter, n_thin=1),
-                     short, flop, n_in, p, ess, acc, plain_ms, reps=3)
-    return {"launches": launches[kernel], "max_abs_err": err, "acceptance_pct": acc, **entry}
+                     short, flop, n_in, p, ess, acc, plain_ms, reps=3, split=wide)
+    out = {"launches": launches[kernel], "max_abs_err": err, "acceptance_pct": acc, **same, **entry}
+    return (out, launches["spectral_store"]) if wide else out
 
 
 def gamma_elem_phase(dev):
@@ -1731,13 +1868,18 @@ def launch_events(module, name):
     """CUDA events recorded on the current stream just before and just after
     every call of ``module.name``, a kernel's routing function, while the body
     runs, as (start, stop) pairs: each launch's device time once the body has
-    synchronised (the counted kernel wrapper below it is untouched)."""
+    synchronised. ``module.name`` is itself again during each call, so a counted
+    kernel wrapper counts its launch on itself."""
     real, marks = getattr(module, name), []
 
     def timed(*args, **kw):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = real(*args, **kw)
+        setattr(module, name, real)
+        try:
+            out = real(*args, **kw)
+        finally:
+            setattr(module, name, timed)
         stop.record()
         marks.append((start, stop))
         return out
@@ -2511,13 +2653,16 @@ def main():
     k4_long = thomas_long_phase(dev, smi, tri_res["thomas_long_twin"])
     k6 = linreg_phase(dev, smi)
     torch.cuda.empty_cache()
-    k5 = linreg_wide_phase(dev, smi)
+    k5, k5_store_launches, store_rows, store_v = linreg_wide_phase(dev, smi)
     torch.cuda.empty_cache()
     k7 = rw_phase(dev, smi, "rw")
     k7_box = rw_phase(dev, smi, "rw_box")
     k8 = mmala_phase(dev, smi, wide=False)
     torch.cuda.empty_cache()
-    k9 = mmala_phase(dev, smi, wide=True)
+    k9, k9_store_launches = mmala_phase(dev, smi, wide=True)
+    torch.cuda.empty_cache()
+    store = store_phase(smi, store_rows, store_v, {"linreg_wide": k5_store_launches, "mmala_wide": k9_store_launches})
+    del store_rows, store_v
     torch.cuda.empty_cache()
     gamma_elem = gamma_elem_phase(dev)
     k12 = gamma_phase(dev, smi)
@@ -2552,6 +2697,8 @@ def main():
          **k8},
         {"name": "spectral_mmala", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/spectral_mmala.cu",
          "replaces": REPLACES["spectral_mmala"], **k9},
+        {"name": "spectral_store", "route": "cuda", "source": "openmcmc_tpu_torch/csrc/spectral_store.cu",
+         "replaces": REPLACES["spectral_store"], "also_replaces": "openmcmc_tpu/fused/spectral.py:755", **store},
     ] + [
         {"name": kind, "route": "cuda", "source": "openmcmc_tpu_torch/csrc/mixture.cu", "replaces": REPLACES["mixture"],
          **entry, "max_abs_err": max(entry["max_abs_err"], k10_small_err)} for kind, entry in k10.items()

@@ -11,7 +11,7 @@ on a machine without ``nvcc``.
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that no multiply-add
 is contracted behind the source's back -- the kernels then round exactly like the
 plain PyTorch versions, which run one operation per kernel. Where a kernel wants a
-fused multiply-add (the store matvec) it writes ``fmaf`` explicitly. No
+fused multiply-add (the stores' products V w) it writes ``fmaf`` explicitly. No
 ``--use_fast_math``: approximate ``logf``/``expf``/division would move the gamma
 accept/reject decisions away from the plain version's.
 """
@@ -31,7 +31,8 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("gamma.cu", "gmrf_smoother.cu", "linreg.cu", "mixture.cu", "mmala.cu", "prng_draws.cu", "random_walk.cu",
-           "rj.cu", "spectral_linreg.cu", "spectral_mmala.cu", "spectral_smoother.cu", "tridiag_canonical.cu")
+           "rj.cu", "spectral_linreg.cu", "spectral_mmala.cu", "spectral_smoother.cu", "spectral_store.cu",
+           "tridiag_canonical.cu")
 HEADERS = ("layout.cuh", "philox.cuh", "prng.cuh", "spectral_store.cuh", "thomas.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -121,14 +122,16 @@ def library() -> ctypes.CDLL:
     lib.truncnorm_draws_launch.restype = ctypes.c_int
     lib.linreg_launch.argtypes = [_P] * 13
     lib.linreg_launch.restype = ctypes.c_int
-    lib.spectral_linreg_launch.argtypes = [_P] * 12
+    lib.spectral_linreg_launch.argtypes = [_P] * 11
     lib.spectral_linreg_launch.restype = ctypes.c_int
     lib.random_walk_launch.argtypes = [_P] * 8
     lib.random_walk_launch.restype = ctypes.c_int
     lib.mmala_launch.argtypes = [_P] * 8
     lib.mmala_launch.restype = ctypes.c_int
-    lib.spectral_mmala_launch.argtypes = [_P] * 12
+    lib.spectral_mmala_launch.argtypes = [_P] * 11
     lib.spectral_mmala_launch.restype = ctypes.c_int
+    lib.spectral_store_launch.argtypes = [_P, _P, ctypes.c_int, ctypes.c_longlong, _P]
+    lib.spectral_store_launch.restype = ctypes.c_int
     lib.gamma_elem_draws_launch.argtypes = [ctypes.c_uint32] + [_P] * 4 + [ctypes.c_int, _P]
     lib.gamma_elem_draws_launch.restype = ctypes.c_int
     lib.mixture_launch.argtypes = [_P] * 9

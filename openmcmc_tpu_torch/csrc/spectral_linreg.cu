@@ -9,19 +9,19 @@
 //   w_k ~ N((lam wmu_k + tau cv_k) / d_k, 1 / d_k),  d_k = lam + tau s_k
 //   q_lam = sum (w_k - wmu_k)^2,  q_tau = max(yPy - 2 sum cv_k w_k + sum s_k w_k^2, 0)
 //   (tau, lam) ~ Gamma(a_tau + N/2, b_tau + q_tau/2), Gamma(a_lam + p/2, b_lam + q_lam/2)
-//   log_post (analytic), and on stored sweeps beta = V w.
+//   log_post (analytic), and on stored sweeps w into beta's row of the output,
+//   which spectral_store.cu then turns into beta = V w in place.
 // It differs from K1 (spectral_smoother.cu) in the precision (lam + tau s, not
 // lam s + tau), the mean, both quadratic forms, and the Gamma pair's order:
 // tau is the pair's first draw (element 0), lam its second.
 //
-// Design: K1's. One warp per chain; lanes cover the eigencoordinates four at a
-// time (one Philox block per four elements, site 0), w goes to the warp's
+// Design: K1's sweep. One warp per chain; lanes cover the eigencoordinates four
+// at a time (one Philox block per four elements, site 0), w goes to the warp's
 // shared buffer, lane 0 draws tau and lane 1 lam side by side, and on stored
-// sweeps the warp computes beta = V w with lanes over rows (spectral_store.cuh),
-// straight into the driver's (chains, n_keep, p) layout. V is held transposed
-// in shared memory when 4 p^2 bytes fit beside the buffers (p up to about
-// 230); at p = 256, V is 256 KB, more than the 227 KB a block may use, so it is
-// read from global memory, where it stays L2-resident.
+// sweeps the warp writes w, coalesced, into the driver's (chains, n_keep, p)
+// layout. V is not read here: the product with V runs over every stored row at
+// once in spectral_store.cu, which reuses V from registers across rows, where a
+// per-chain product loaded V from L1/L2 for every FMA.
 //
 // The three sums run in one fixed order, the plain version's
 // (openmcmc_tpu_torch/fused/spectral.py: sum_windows): p rounded up to 8, then
@@ -31,15 +31,15 @@
 // by far more than the rest of the sweep's rounding.
 //
 // What bounds it at the main path's shapes (p = 256, 4096 chains, 700 sweeps,
-// 500 stored): operations. The store's V w is 2.7e11 fp32 FLOP, each FMA fed by
-// one load of V from L1/L2; the store itself is 2.1 GB of writes (0.63 ms of
-// HBM time). A later change can keep V in shared memory as two halves or
-// move V w to the tensor cores with a 3xTF32 split.
+// 500 stored): bytes, the 2.1 GB of w rows it writes (0.63 ms at 3.35 TB/s);
+// its operations, 47 FLOP a coordinate (the inverse-CDF normal 30 of them) and
+// the Gamma pair, come to 3.5e10 (0.52 ms at 67 TFLOP/s). It runs far from
+// both: with a warp a chain, the Gamma pair and the window sums keep a few
+// lanes busy while the others wait.
 #include <cuda_runtime.h>
 
 #include "layout.cuh"
 #include "prng.cuh"
-#include "spectral_store.cuh"
 
 struct LinregWideParams {
   uint32_t seed;
@@ -68,13 +68,10 @@ struct LinregWideParams {
   GammaSpec g_lam;
 };
 
-static constexpr int kMaxSmem = 232448;  // 227 KB of dynamic shared memory per block
-
-template <bool V_SMEM>
-__global__ void spectral_linreg_kernel(LinregWideParams prm, const float* __restrict__ VT,
-                                       const float* __restrict__ svec, const float* __restrict__ wmu,
-                                       const float* __restrict__ cv, const float* __restrict__ lam0,
-                                       const float* __restrict__ tau0, float* __restrict__ out_b,
+__global__ void spectral_linreg_kernel(LinregWideParams prm, const float* __restrict__ svec,
+                                       const float* __restrict__ wmu, const float* __restrict__ cv,
+                                       const float* __restrict__ lam0, const float* __restrict__ tau0,
+                                       float* __restrict__ out_b,
                                        float* __restrict__ out_lam, float* __restrict__ out_tau,
                                        float* __restrict__ out_lp) {
   extern __shared__ float smem[];
@@ -83,13 +80,7 @@ __global__ void spectral_linreg_kernel(LinregWideParams prm, const float* __rest
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  float* vt_s = smem;
-  float* wbuf = smem + (V_SMEM ? (size_t)p * p : 0) + (size_t)warp * p;
-  if (V_SMEM) {
-    for (int i = threadIdx.x; i < p * p; i += blockDim.x) vt_s[i] = VT[i];
-    __syncthreads();
-  }
-  const float* vt = V_SMEM ? vt_s : VT;
+  float* wbuf = smem + (size_t)warp * p;
   const int chain = blockIdx.x * warps + warp;
   if (chain >= prm.n_chains) return;  // no block-wide barrier follows
 
@@ -158,36 +149,22 @@ __global__ void spectral_linreg_kernel(LinregWideParams prm, const float* __rest
         out_tau[o] = tau;
         out_lp[o] = log_like + log_beta + log_lam + log_tau;
       }
-      store_vw(vt, wbuf, out_b + ((size_t)chain * prm.n_keep + idx) * p, p, lane);
+      float* ob = out_b + ((size_t)chain * prm.n_keep + idx) * p;
+      for (int k = lane; k < p; k += 32) ob[k] = wbuf[k];
     }
     __syncwarp();  // wbuf is rewritten by the next sweep
   }
 }
 
-extern "C" int spectral_linreg_launch(const LinregWideParams* prm, const float* VT, const float* svec,
-                                      const float* wmu, const float* cv, const float* lam0, const float* tau0,
-                                      float* out_b, float* out_lam, float* out_tau, float* out_lp,
-                                      cudaStream_t stream) {
+extern "C" int spectral_linreg_launch(const LinregWideParams* prm, const float* svec, const float* wmu,
+                                      const float* cv, const float* lam0, const float* tau0, float* out_b,
+                                      float* out_lam, float* out_tau, float* out_lp, cudaStream_t stream) {
   const int p = prm->p;
   if (p < 1 || p > 256 || prm->sum_windows < 1 || prm->sum_windows > 8) return (int)cudaErrorInvalidValue;
-  const size_t vbytes = (size_t)p * p * sizeof(float);
-  const size_t wbytes = (size_t)p * sizeof(float);
-  int warps = 8;
-  bool v_smem = vbytes + warps * wbytes <= (size_t)kMaxSmem;
-  const size_t smem = (v_smem ? vbytes : 0) + warps * wbytes;
+  const int warps = 8;
+  const size_t smem = warps * (size_t)p * sizeof(float);  // at most 8 KB
   const int blocks = (prm->n_chains + warps - 1) / warps;
-  cudaError_t err;
-  if (v_smem) {
-    err = cudaFuncSetAttribute(spectral_linreg_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    spectral_linreg_kernel<true><<<blocks, 32 * warps, smem, stream>>>(*prm, VT, svec, wmu, cv, lam0, tau0, out_b,
-                                                                       out_lam, out_tau, out_lp);
-  } else {
-    err = cudaFuncSetAttribute(spectral_linreg_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    spectral_linreg_kernel<false><<<blocks, 32 * warps, smem, stream>>>(*prm, VT, svec, wmu, cv, lam0, tau0, out_b,
-                                                                        out_lam, out_tau, out_lp);
-  }
+  spectral_linreg_kernel<<<blocks, 32 * warps, smem, stream>>>(*prm, svec, wmu, cv, lam0, tau0, out_b, out_lam,
+                                                                out_tau, out_lp);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,8 @@
 //   log q(x | m) = 1/2 sum log d - p/2 (log 2 pi + log s^2) - sum d (x - m)^2 / (2 s^2)
 //   log_accept = log pi(w') - log pi(w) + log q(w | mu(w')) - log q(w' | mu(w))
 //   (adapting) log s += rate (exp(min(log_accept, 0)) - target) during burn-in
-// and on stored sweeps beta = V w, every step as the plain version in
+// and on stored sweeps w into beta's row of the output, which spectral_store.cu
+// then turns into beta = V w in place; every step as the plain version in
 // openmcmc_tpu_torch/fused/spectral.py computes it (compiled with
 // --fmad=false). Two departures from the JAX kernel: it sums
 // -1/2 (sum d w^2 + yPy) + sum vw w in float32, which at yPy ~ 5e7 rounds by
@@ -30,22 +31,22 @@
 // (chain, sweep, site, i / 4), word i % 4. Site 0 holds the p normals (the JAX
 // kernel draws p rounded up to 8), site 1 the accept uniform.
 //
-// Design: K5's. One warp per chain; lanes cover the coordinates four at a time
-// (one Philox block per four), w and w' sit in the warp's shared buffers, the
-// sums run on the lanes above, every lane takes the same accept decision, and on
-// stored sweeps the warp computes beta = V w with lanes over rows
-// (spectral_store.cuh). V is held transposed in shared memory when it fits
-// beside the buffers (p up to about 230); at p = 256 it is read from global
-// memory, where it stays L2-resident.
+// Design: K5's sweep. One warp per chain; lanes cover the coordinates four at a
+// time (one Philox block per four), w and w' sit in the warp's shared buffers,
+// the sums run on the lanes above, every lane takes the same accept decision,
+// and on stored sweeps the warp writes w, coalesced, into the driver's
+// (chains, n_keep, p) layout. V is not read here: the product with V runs over
+// every stored row at once in spectral_store.cu.
 //
 // What bounds it at the main path's shapes (p = 256, 4096 chains, 700 sweeps,
-// 500 stored): operations. The store's V w is 2.7e11 fp32 FLOP, each FMA fed by
-// one load of V from L1/L2, as in K5; the store itself is 2.1 GB of writes.
+// 500 stored): bytes, the 2.1 GB of w rows it writes (0.63 ms at 3.35 TB/s);
+// its operations, 55 FLOP a coordinate and 40 a sweep, come to 4.0e10 (0.60 ms
+// at 67 TFLOP/s). It runs far from both: with a warp a chain, the window sums
+// keep 24 lanes busy and the accept one value while the others wait.
 #include <cuda_runtime.h>
 
 #include "layout.cuh"
 #include "prng.cuh"
-#include "spectral_store.cuh"
 
 struct MmalaWideParams {
   uint32_t seed;
@@ -70,7 +71,6 @@ struct MmalaWideParams {
   float rate;
 };
 
-static constexpr int kMaxSmem = 232448;  // 227 KB of dynamic shared memory per block
 static constexpr int kWarps = 8;
 
 // Window sum of quantity q (0: d (w' - cw)^2, 1: d (w - mu(w'))^2,
@@ -105,10 +105,8 @@ __device__ __forceinline__ void three_sums(const float* wb, const float* pb, con
   }
 }
 
-template <bool V_SMEM>
-__global__ void spectral_mmala_kernel(MmalaWideParams prm, const float* __restrict__ VT, const float* __restrict__ dg,
-                                      const float* __restrict__ cwg, const float* __restrict__ isdg,
-                                      const float* __restrict__ w0,
+__global__ void spectral_mmala_kernel(MmalaWideParams prm, const float* __restrict__ dg, const float* __restrict__ cwg,
+                                      const float* __restrict__ isdg, const float* __restrict__ w0,
                                       float* __restrict__ out_b, float* __restrict__ out_lp,
                                       float* __restrict__ out_acc, float* __restrict__ out_total,
                                       float* __restrict__ out_log_step) {
@@ -117,21 +115,15 @@ __global__ void spectral_mmala_kernel(MmalaWideParams prm, const float* __restri
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  float* vt_s = smem;
-  float* consts = smem + (V_SMEM ? (size_t)p * p : 0);
-  float *dv = consts, *cw = consts + p, *isd = consts + 2 * p;
-  float* wb = consts + 3 * p + (size_t)warp * 2 * p;  // this warp's w
-  float* pb = wb + p;                                 // and w'
-  if (V_SMEM) {
-    for (int i = threadIdx.x; i < p * p; i += blockDim.x) vt_s[i] = VT[i];
-  }
+  float *dv = smem, *cw = smem + p, *isd = smem + 2 * p;
+  float* wb = smem + 3 * p + (size_t)warp * 2 * p;  // this warp's w
+  float* pb = wb + p;                               // and w'
   for (int i = threadIdx.x; i < p; i += blockDim.x) {
     dv[i] = dg[i];
     cw[i] = cwg[i];
     isd[i] = isdg[i];
   }
   __syncthreads();
-  const float* vt = V_SMEM ? vt_s : VT;
   const int chain = blockIdx.x * warps + warp;
   if (chain >= prm.n_chains) return;  // no block-wide barrier follows
 
@@ -196,9 +188,9 @@ __global__ void spectral_mmala_kernel(MmalaWideParams prm, const float* __restri
         out_lp[o] = lp;
         out_acc[o] = accept ? 1.0f : 0.0f;
       }
-      store_vw(vt, wb, out_b + o * p, p, lane);
+      for (int k = lane; k < p; k += 32) out_b[o * p + k] = wb[k];
     }
-    __syncwarp();  // pb is rewritten by the next sweep, wb read by the store
+    __syncwarp();  // pb is rewritten by the next sweep, wb read by the row's write
   }
   if (lane == 0) {
     out_total[chain] = acc;
@@ -206,29 +198,14 @@ __global__ void spectral_mmala_kernel(MmalaWideParams prm, const float* __restri
   }
 }
 
-extern "C" int spectral_mmala_launch(const MmalaWideParams* prm, const float* VT, const float* d, const float* cw,
-                                     const float* isd, const float* w0, float* out_b,
-                                     float* out_lp, float* out_acc, float* out_total, float* out_log_step,
-                                     cudaStream_t stream) {
+extern "C" int spectral_mmala_launch(const MmalaWideParams* prm, const float* d, const float* cw, const float* isd,
+                                     const float* w0, float* out_b, float* out_lp, float* out_acc, float* out_total,
+                                     float* out_log_step, cudaStream_t stream) {
   const int p = prm->p;
   if (p < 1 || p > 256 || prm->sum_windows < 1 || prm->sum_windows > 8) return (int)cudaErrorInvalidValue;
-  const size_t vbytes = (size_t)p * p * sizeof(float);
-  const size_t rest = (size_t)(3 + 2 * kWarps) * p * sizeof(float);
-  const bool v_smem = vbytes + rest <= (size_t)kMaxSmem;
-  const size_t smem = (v_smem ? vbytes : 0) + rest;
+  const size_t smem = (size_t)(3 + 2 * kWarps) * p * sizeof(float);  // at most 19 KB
   const int blocks = (prm->n_chains + kWarps - 1) / kWarps;
-  cudaError_t err;
-  if (v_smem) {
-    err = cudaFuncSetAttribute(spectral_mmala_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    spectral_mmala_kernel<true><<<blocks, 32 * kWarps, smem, stream>>>(*prm, VT, d, cw, isd, w0, out_b, out_lp,
-                                                                       out_acc, out_total, out_log_step);
-  } else {
-    err = cudaFuncSetAttribute(spectral_mmala_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    spectral_mmala_kernel<false><<<blocks, 32 * kWarps, smem, stream>>>(*prm, VT, d, cw, isd, w0, out_b, out_lp,
-                                                                        out_acc, out_total, out_log_step);
-  }
+  spectral_mmala_kernel<<<blocks, 32 * kWarps, smem, stream>>>(*prm, d, cw, isd, w0, out_b, out_lp, out_acc,
+                                                               out_total, out_log_step);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,13 @@
-// The store of the spectral kernels (spectral_smoother.cu, spectral_linreg.cu):
-// one chain's stored draw b = V w, computed by its warp with lanes over field
-// rows (four rows per lane in flight), each row written coalesced into ob.
-// vt[k * p + i] = V[i, k] sits in shared or global memory; wbuf holds w.
+// The store of the spectral smoother (spectral_smoother.cu, K1): one chain's
+// stored draw b = V w, computed by its warp with lanes over field rows (four rows
+// per lane in flight), each row written coalesced into ob. vt[k * p + i] =
+// V[i, k] sits in shared or global memory; wbuf holds w. Each output sums
+// fmaf(V[i, k], w_k, acc) over k in ascending order, as spectral_store.cu does.
+//
+// What bounds it: loads. Every FMA reads V from shared memory or, where V does
+// not fit beside the buffers, from L1/L2, and no element of V is reused across
+// chains. K5 and K9 left it for spectral_store.cu, one register-tiled product
+// over every stored row at once.
 #pragma once
 
 __device__ __forceinline__ void store_vw(const float* __restrict__ vt, const float* wbuf, float* __restrict__ ob,

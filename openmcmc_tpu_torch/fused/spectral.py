@@ -28,8 +28,11 @@ diag(plam): V' diag(plam) V = I, V'GV = diag(s), and in w = V^-1 beta
     (y - X beta)' P (y - X beta) = y'Py - 2 sum cv w + sum s w^2   (clamped at 0),
 
 then (tau, lam) as one Gamma pair and beta = V w on stored sweeps.
-:func:`spectral_linreg_sweeps` launches ``csrc/spectral_linreg.cu`` for CUDA
-tensors and takes :func:`spectral_linreg_sweeps_plain` for CPU tensors. Its three
+:func:`spectral_linreg_sweeps` launches ``csrc/spectral_linreg.cu``, which writes
+each stored w into beta's row, and then ``csrc/spectral_store.cu``
+(:func:`spectral_store_kernel`), which turns every stored row into beta = V w in
+place, as the JAX kernel's block product on the MXU does; it takes
+:func:`spectral_linreg_sweeps_plain` for CPU tensors. Its three
 sums run in one fixed order in both (:func:`window_sums`): tau's form cancels
 heavily, and another order would move tau by far more than rounding.
 
@@ -37,9 +40,10 @@ Constant-metric manifold MALA (``run_spectral_mmala`` :867 with kernel
 ``_make_mmala_kernel`` :655, K9) takes the same pencil with the metric
 A = tau G + lam diag(plam), eigenvalues d = tau s + lam, and runs every proposal,
 density and accept elementwise in w = V^-1 beta, with beta = V w on stored
-sweeps. :func:`spectral_mmala_sweeps` launches ``csrc/spectral_mmala.cu`` for
-CUDA tensors and takes :func:`spectral_mmala_sweeps_plain` for CPU tensors; its
-three sums run in K5's window order. Two departures: the log target is taken
+sweeps. :func:`spectral_mmala_sweeps` launches ``csrc/spectral_mmala.cu`` and
+then the same store kernel for CUDA tensors and takes
+:func:`spectral_mmala_sweeps_plain` for CPU tensors; its three sums run in K5's
+window order. Two departures: the log target is taken
 about its mode, log_const - 1/2 sum d (w - vw/d)^2 with the constant in float64 on
 the host, where the JAX kernel sums -1/2 (sum d w^2 + yPy) + sum vw w in float32,
 which at yPy ~ 5e7 (N = 2048, P = 100 I) rounds by more than the accept ratio
@@ -360,6 +364,49 @@ def window_sums(terms: torch.Tensor) -> torch.Tensor:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the stored draws of K5 and K9: beta = V w over every stored row at once
+# ---------------------------------------------------------------------------
+
+STORE_DEPTH, STORE_COLS = 16, 256  # csrc/spectral_store.cu's k-tile rows and tile columns (kDepth, kCols)
+
+
+def spectral_store_plain(w, V):
+    """Plain version of the store kernel: beta = w V' for (..., p) rows w."""
+    return torch.matmul(w, V.T)
+
+
+def spectral_store_kernel(rows, V):
+    """Launch ``csrc/spectral_store.cu``: the (..., p) ``rows`` (contiguous
+    float32 on the card, p <= MAX_P) become rows V' in place, each output summed
+    by fmaf in ascending k. V' is handed over padded with zeros to (p rounded up
+    to STORE_DEPTH, STORE_COLS), the kernel's tile. Launches on the current
+    stream, does not synchronise; returns ``rows``."""
+    p = V.shape[0]
+    if V.dim() != 2 or V.shape[1] != p or not 1 <= p <= MAX_P:
+        raise ValueError(f"spectral store: V must be (p, p) with p <= {MAX_P}, got {tuple(V.shape)}")
+    if rows.dim() < 1 or rows.shape[-1] != p:
+        raise ValueError(f"spectral store: rows must end in p = {p}, got {tuple(rows.shape)}")
+    for name, t in (("rows", rows), ("V", V)):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous() or t.device != V.device:
+            raise ValueError(f"spectral store: {name} must be a contiguous float32 tensor on one CUDA device, got "
+                             f"{t.dtype} on {t.device}")
+    from openmcmc_tpu_torch import _build
+
+    vt = torch.zeros((-(-p // STORE_DEPTH) * STORE_DEPTH, STORE_COLS), dtype=torch.float32, device=V.device)
+    vt[:p, :p] = V.t()
+    lib = _build.library()
+    with torch.cuda.device(V.device):
+        stream = torch.cuda.current_stream(V.device).cuda_stream
+        err = lib.spectral_store_launch(rows.data_ptr(), vt.data_ptr(), p, rows.numel() // p, stream)
+    spectral_store_kernel.launches += 1
+    _build.check(err, "spectral_store")
+    return rows
+
+
+spectral_store_kernel.launches = 0
+
+
 def spectral_linreg_sweeps_plain(seed, V, s, wmu, cv, lam0, tau0, *, yPy, logdet_plam, logdet_ptau, n_obs, a_lam,
                                  b_lam, a_tau, b_tau, n_burn, n_keep, n_thin=1, bit_source=None):
     """Plain PyTorch version of the K5 kernel: all sweeps for all chains.
@@ -409,7 +456,7 @@ def spectral_linreg_sweeps_plain(seed, V, s, wmu, cv, lam0, tau0, *, yPy, logdet
         log_beta = 0.5 * (p_real * torch.log(lam) + ld_plam - p_real * prng.LOG_2PI - lam * quad_lam)
         log_lam = lgam_lam + (a_lam - 1.0) * torch.log(lam) - b_lam * lam
         log_tau = lgam_tau + (a_tau - 1.0) * torch.log(tau) - b_tau * tau
-        out_beta[:, idx] = torch.matmul(w, V.T)
+        out_beta[:, idx] = spectral_store_plain(w, V)
         out["lam"][:, idx] = lam[:, 0]
         out["tau"][:, idx] = tau[:, 0]
         out["log_post"][:, idx] = (log_like + log_beta + log_lam + log_tau)[:, 0]
@@ -450,8 +497,9 @@ class LinregWideParams(ctypes.Structure):
 def spectral_linreg_sweeps_kernel(seed, V, s, wmu, cv, lam0, tau0, *, yPy, logdet_plam, logdet_ptau, n_obs, a_lam,
                                   b_lam, a_tau, b_tau, n_burn, n_keep, n_thin=1):
     """Launch ``csrc/spectral_linreg.cu`` on CUDA tensors (arguments and results
-    as :func:`spectral_linreg_sweeps_plain`). Launches on the current stream,
-    does not synchronise."""
+    as :func:`spectral_linreg_sweeps_plain`), which writes each stored sweep's w
+    into beta's row, then :func:`spectral_store_kernel` over the rows. Both
+    launch on the current stream; nothing synchronises."""
     _check_inputs(V, {"s": s, "wmu": wmu, "cv": cv}, lam0, tau0)
     if V.device.type != "cuda":
         raise ValueError(f"spectral linreg kernel: expected CUDA tensors, got {V.device}")
@@ -471,7 +519,6 @@ def spectral_linreg_sweeps_kernel(seed, V, s, wmu, cv, lam0, tau0, *, yPy, logde
         p_log2pi=p * prng.LOG_2PI, b_lam=b_lam, b_tau=b_tau, lgam_lam=_lgam(a_lam, b_lam),
         lgam_tau=_lgam(a_tau, b_tau), a_lam_m1=a_lam - 1.0, a_tau_m1=a_tau - 1.0, g_tau=g_tau, g_lam=g_lam,
     )
-    VT = V.t().contiguous()
     out_beta = torch.empty((n_chains, n_keep, p), dtype=torch.float32, device=V.device)
     out = {k: torch.empty((n_chains, n_keep), dtype=torch.float32, device=V.device)
            for k in ("lam", "tau", "log_post")}
@@ -479,12 +526,12 @@ def spectral_linreg_sweeps_kernel(seed, V, s, wmu, cv, lam0, tau0, *, yPy, logde
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream(V.device).cuda_stream
         err = lib.spectral_linreg_launch(
-            ctypes.byref(prm), VT.data_ptr(), s.data_ptr(), wmu.data_ptr(), cv.data_ptr(), lam0.data_ptr(),
-            tau0.data_ptr(), out_beta.data_ptr(), out["lam"].data_ptr(), out["tau"].data_ptr(),
-            out["log_post"].data_ptr(), stream,
+            ctypes.byref(prm), s.data_ptr(), wmu.data_ptr(), cv.data_ptr(), lam0.data_ptr(), tau0.data_ptr(),
+            out_beta.data_ptr(), out["lam"].data_ptr(), out["tau"].data_ptr(), out["log_post"].data_ptr(), stream,
         )
     spectral_linreg_sweeps_kernel.launches += 1
     _build.check(err, "spectral_linreg")
+    spectral_store_kernel(out_beta, V)
     return {"beta": out_beta, **out}
 
 
@@ -639,7 +686,7 @@ def spectral_mmala_sweeps_plain(seed, V, d, cw, isd, w0, n_chains, *, log_const,
         idx = store_index(it, n_burn, n_thin)
         if idx < 0:
             continue
-        out_b[:, idx] = torch.matmul(w, V.T)
+        out_b[:, idx] = spectral_store_plain(w, V)
         out["log_post"][:, idx] = lp
         out["accept"][:, idx] = accept.to(torch.float32)
     return {"beta": out_b, **out, "accept_total": acc, "log_step": log_step}
@@ -688,8 +735,9 @@ def _check_mmala_inputs(V, vectors: dict, n_chains):
 def spectral_mmala_sweeps_kernel(seed, V, d, cw, isd, w0, n_chains, *, log_const, half_logdetA, step, adapt,
                                  target, rate, n_burn, n_keep, n_thin=1):
     """Launch ``csrc/spectral_mmala.cu`` on CUDA tensors (arguments and results
-    as :func:`spectral_mmala_sweeps_plain`). Launches on the current stream,
-    does not synchronise."""
+    as :func:`spectral_mmala_sweeps_plain`), which writes each stored sweep's w
+    into beta's row, then :func:`spectral_store_kernel` over the rows. Both
+    launch on the current stream; nothing synchronises."""
     _check_mmala_inputs(V, {"d": d, "cw": cw, "isd": isd, "w0": w0}, n_chains)
     if V.device.type != "cuda":
         raise ValueError(f"spectral mMALA kernel: expected CUDA tensors, got {V.device}")
@@ -705,7 +753,6 @@ def spectral_mmala_sweeps_kernel(seed, V, d, cw, isd, w0, n_chains, *, log_const
         half_logdetA=half_logdetA, half_p=0.5 * p, log_step0=math.log(step), target=target, rate=rate,
         **mmala_step_constants(p, step),
     )
-    VT = V.t().contiguous()
     out_b = torch.empty((n_chains, n_keep, p), dtype=torch.float32, device=V.device)
     out = {k: torch.empty((n_chains, n_keep), dtype=torch.float32, device=V.device) for k in ("log_post", "accept")}
     last = {k: torch.empty((n_chains,), dtype=torch.float32, device=V.device) for k in ("accept_total", "log_step")}
@@ -713,11 +760,13 @@ def spectral_mmala_sweeps_kernel(seed, V, d, cw, isd, w0, n_chains, *, log_const
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream(V.device).cuda_stream
         err = lib.spectral_mmala_launch(
-            ctypes.byref(prm), VT.data_ptr(), d.data_ptr(), cw.data_ptr(), isd.data_ptr(), w0.data_ptr(), out_b.data_ptr(), out["log_post"].data_ptr(), out["accept"].data_ptr(),
-            last["accept_total"].data_ptr(), last["log_step"].data_ptr(), stream,
+            ctypes.byref(prm), d.data_ptr(), cw.data_ptr(), isd.data_ptr(), w0.data_ptr(), out_b.data_ptr(),
+            out["log_post"].data_ptr(), out["accept"].data_ptr(), last["accept_total"].data_ptr(),
+            last["log_step"].data_ptr(), stream,
         )
     spectral_mmala_sweeps_kernel.launches += 1
     _build.check(err, "spectral_mmala")
+    spectral_store_kernel(out_b, V)
     return {"beta": out_b, **out, **last}
 
 

@@ -471,11 +471,44 @@ def test_linreg_kernel_warm_rows_match_plain(dev):
     _assert_kernel_matches_plain(got, want)
 
 
-@pytest.mark.parametrize("N,p", [(80, 24), (600, 250)], ids=["p24_smem", "p250_global"])
+@pytest.mark.parametrize("p", [1, 24, 100, 250, 256])
+def test_spectral_store_kernel_matches_plain(dev, p):
+    """The store kernel of K5 and K9 alone: 1000 + 37 rows (ragged against its
+    64-row strips) of a larger buffer become rows V' in place, against the plain
+    product within float32 summation-order rounding (rtol 1e-5, atol 1e-5 at
+    O(1) inputs); the 37 rows past them stay untouched; every p but 256 masks
+    columns of the 256-column tile, and p = 1, 24, 100 and 250 end in a ragged
+    k-tile (scalar stores where p is not a multiple of 4)."""
+    from openmcmc_tpu_torch.fused import spectral
+
+    rng = np.random.default_rng(p)
+    n_rows = 1037
+    f32 = dict(dtype=torch.float32, device=dev)
+    w = torch.as_tensor(rng.normal(size=(n_rows + 37, p)), **f32)
+    V = torch.as_tensor(rng.normal(size=(p, p)) / np.sqrt(p), **f32)
+    buf = w.clone()
+    before = spectral.spectral_store_kernel.launches
+    out = spectral.spectral_store_kernel(buf[:n_rows], V)
+    want = spectral.spectral_store_plain(w[:n_rows], V)
+    torch.cuda.synchronize()
+    assert spectral.spectral_store_kernel.launches == before + 1
+    assert out.data_ptr() == buf.data_ptr()
+    torch.testing.assert_close(buf[:n_rows], want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(buf[n_rows:], w[n_rows:])
+
+
+def _assert_store_launched(kernel_fn, before):
+    """One launch of the sweep kernel and one of the store kernel since ``before``."""
+    from openmcmc_tpu_torch.fused import spectral
+
+    assert (kernel_fn.launches, spectral.spectral_store_kernel.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("N,p", [(80, 24), (600, 250)], ids=["p24", "p250"])
 def test_spectral_linreg_kernel_matches_plain(dev, N, p):
-    """K5 against its plain version on the same Philox bits: 100 chains, n_burn
-    3, n_keep 5, n_thin 2; V in shared memory at p = 24, in global memory at the
-    ragged p = 250 (eight 32-row sum windows)."""
+    """K5 and its store kernel against the plain version on the same Philox
+    bits: 100 chains, n_burn 3, n_keep 5, n_thin 2, at p = 24 and the ragged
+    p = 250 (eight 32-row sum windows); lam, tau and log_post bit for bit."""
     from openmcmc_tpu_torch.fused import spectral
 
     X, y, extra = _linreg_problem(dev, N, p, p)
@@ -485,13 +518,15 @@ def test_spectral_linreg_kernel_matches_plain(dev, N, p):
     args += [torch.full((100,), 0.5, **f32), torch.full((100,), 1.0, **f32)]
     kw = {k: float(np.float32(prep[k])) for k in ("yPy", "logdet_plam", "logdet_ptau")}
     kw.update(n_obs=float(N), a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=3, n_keep=5, n_thin=2)
-    before = spectral.spectral_linreg_sweeps_kernel.launches
+    before = spectral.spectral_linreg_sweeps_kernel.launches, spectral.spectral_store_kernel.launches
     got = spectral.spectral_linreg_sweeps(3, *args, **kw)
     want = spectral.spectral_linreg_sweeps_plain(3, *args, **kw)
     torch.cuda.synchronize()
-    assert spectral.spectral_linreg_sweeps_kernel.launches == before + 1
+    _assert_store_launched(spectral.spectral_linreg_sweeps_kernel, before)
     assert tuple(got["beta"].shape) == (100, 5, p)
     _assert_kernel_matches_plain(got, want)
+    for name in ("lam", "tau", "log_post"):
+        assert torch.equal(got[name], want[name]), name
 
 
 def _assert_mh_matches_plain(got, want, draw):
@@ -557,11 +592,12 @@ def test_mmala_kernel_matches_plain(dev, p, adapt):
     _assert_mh_matches_plain(got, want, "beta")
 
 
-@pytest.mark.parametrize("N,p,adapt", [(80, 24, True), (600, 250, False)], ids=["p24_smem_adapting", "p250_global"])
+@pytest.mark.parametrize("N,p,adapt", [(80, 24, True), (600, 250, False)], ids=["p24_adapting", "p250"])
 def test_spectral_mmala_kernel_matches_plain(dev, N, p, adapt):
-    """K9 against its plain version on the same Philox bits: 100 chains, n_burn
-    4, n_keep 5, n_thin 2; V in shared memory at p = 24, in global memory at the
-    ragged p = 250 (eight 32-row sum windows)."""
+    """K9 and its store kernel against the plain version on the same Philox
+    bits: 100 chains, n_burn 4, n_keep 5, n_thin 2, at p = 24 and the ragged
+    p = 250 (eight 32-row sum windows); log_post, every accept decision,
+    accept_total and log_step bit for bit."""
     from openmcmc_tpu_torch.fused import spectral
 
     X, y, extra = _linreg_problem(dev, N, p, p)
@@ -569,13 +605,15 @@ def test_spectral_mmala_kernel_matches_plain(dev, N, p, adapt):
                                   plam_diag=extra["plam_diag"], mu0=extra["mu"])
     tensors, kw = spectral.mmala_inputs(prep, dev)
     kw.update(step=0.5, adapt=adapt, target=0.5, rate=0.1, n_burn=4, n_keep=5, n_thin=2)
-    before = spectral.spectral_mmala_sweeps_kernel.launches
+    before = spectral.spectral_mmala_sweeps_kernel.launches, spectral.spectral_store_kernel.launches
     got = spectral.spectral_mmala_sweeps(3, *tensors, 100, **kw)
     want = spectral.spectral_mmala_sweeps_plain(3, *tensors, 100, **kw)
     torch.cuda.synchronize()
-    assert spectral.spectral_mmala_sweeps_kernel.launches == before + 1
+    _assert_store_launched(spectral.spectral_mmala_sweeps_kernel, before)
     assert tuple(got["beta"].shape) == (100, 5, p)
     _assert_mh_matches_plain(got, want, "beta")
+    for name in ("log_post", "accept", "accept_total", "log_step"):
+        assert torch.equal(got[name], want[name]), name
 
 
 def test_gamma_elem_kernel_matches_plain(dev):

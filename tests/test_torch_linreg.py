@@ -311,3 +311,18 @@ def test_posterior_matches_jax_generic(generic_problem, route):
         g = np.asarray(gen.store[name]).reshape(-1)
         assert abs(f.mean() - g.mean()) < 0.1 * g.std(), name
         assert abs(f.std() / g.std() - 1.0) < 0.1, name
+
+
+@pytest.mark.parametrize("case", ["cpu", "non_contiguous", "p_above_256"])
+def test_spectral_store_kernel_refuses(case):
+    """The store kernel's wrapper (K5's and K9's beta = V w over the stored rows)
+    launches only on contiguous float32 CUDA rows with p <= 256, and raises before
+    it builds anything on any other input."""
+    p = 257 if case == "p_above_256" else 8
+    V = torch.eye(p)
+    rows = torch.zeros((5, p)) if case != "non_contiguous" else torch.zeros((p, 5)).t()
+    match = {"cpu": "CUDA device", "non_contiguous": "contiguous", "p_above_256": "p <= 256"}[case]
+    before = tspectral.spectral_store_kernel.launches
+    with pytest.raises(ValueError, match=match):
+        tspectral.spectral_store_kernel(rows, V)
+    assert tspectral.spectral_store_kernel.launches == before
