@@ -511,38 +511,33 @@ def build_mcmc(dev, n_chains=None):
     return smoother_model(dev, s, y, N_TIME, n_chains or N_CHAINS, N_BURN, N_ITER, SEED)
 
 
-def _wrappers():
-    from openmcmc_tpu_torch.fused import gmrf_smoother, linreg, mmala, prng, random_walk, spectral
-    from openmcmc_tpu_torch.linalg import tridiag
+KERNELS = ("spectral_smoother", "prng_draws", "tridiag_canonical", "gmrf_smoother", "truncnorm_draws", "linreg",
+           "spectral_linreg", "random_walk", "mmala", "spectral_mmala", "mixture", "gamma_elem_draws", "rj", "gamma",
+           "spectral_store")  # each wrapper's launch.<name> counter in the tracer
+_launch_base = {}
 
-    from openmcmc_tpu_torch.fused import mixture, rj
 
-    from openmcmc_tpu_torch.linalg import gamma
+def _launch_totals():
+    from openmcmc_tpu_torch.utils import profiling
 
-    return {"spectral_smoother": spectral.smoother_sweeps_kernel, "prng_draws": prng.draws,
-            "tridiag_canonical": tridiag.sample_canonical_tridiag_kernel,
-            "gmrf_smoother": gmrf_smoother.gmrf_smoother_kernel, "truncnorm_draws": prng.truncnorm_draws,
-            "linreg": linreg.linreg_sweeps_kernel, "spectral_linreg": spectral.spectral_linreg_sweeps_kernel,
-            "random_walk": random_walk.rw_sweeps_kernel, "mmala": mmala.mmala_sweeps_kernel,
-            "spectral_mmala": spectral.spectral_mmala_sweeps_kernel, "mixture": mixture.mixture_sweeps_kernel,
-            "gamma_elem_draws": prng.gamma_elem_draws, "rj": rj.rj_sweeps_kernel, "gamma": gamma.gamma_kernel,
-            "spectral_store": spectral.spectral_store_kernel}
+    totals = profiling.counters()
+    return {name: totals.get(f"launch.{name}", 0) for name in KERNELS}
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch count to 0."""
-    for fn in _wrappers().values():
-        fn.launches = 0
+    """Count every kernel's launches from 0 again (from the totals now)."""
+    _launch_base.clear()
+    _launch_base.update(_launch_totals())
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: n - _launch_base.get(name, 0) for name, n in _launch_totals().items()}
 
 
 def only(name, count, **others):
     """The launch counts of a path that launches kernel ``name`` ``count`` times,
     each of ``others`` its given count, and no other."""
-    return {k: (count if k == name else others.get(k, 0)) for k in _wrappers()}
+    return {k: (count if k == name else others.get(k, 0)) for k in KERNELS}
 
 
 def check_store(res, path):

@@ -28,6 +28,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+from openmcmc_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("gamma.cu", "gmrf_smoother.cu", "linreg.cu", "mixture.cu", "mmala.cu", "prng_draws.cu", "random_walk.cu",
@@ -108,8 +110,14 @@ def build() -> Build:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use, with every entry point's
     argument types declared (pointers and the stream as ``c_void_p``, so ctypes
-    never truncates them to 32 bits)."""
-    lib = ctypes.CDLL(str(build().path))
+    never truncates them to 32 bits). The first call's build and load are span
+    ``build.library`` and add their time to counter ``build.library_ns``."""
+    t0 = time.perf_counter_ns()
+    with profiling.trace_annotated("build.library"):
+        built = build()
+        profiling.annotate(compiled=built.seconds > 0.0)
+        lib = ctypes.CDLL(str(built.path))
+    profiling.count("build.library_ns", time.perf_counter_ns() - t0)
     lib.spectral_smoother_launch.argtypes = [_P] * 12
     lib.spectral_smoother_launch.restype = ctypes.c_int
     lib.prng_draws_launch.argtypes = [_P] * 5 + [ctypes.c_int, _P]

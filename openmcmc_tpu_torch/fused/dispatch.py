@@ -37,6 +37,7 @@ back to the generic driver under ``"auto"``. Mesh sharding is not ported
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 from typing import Callable, Optional
 
@@ -45,6 +46,7 @@ import torch
 
 from openmcmc_tpu_torch.distributions.location_scale import Normal
 from openmcmc_tpu_torch.distributions.univariate import Categorical, Gamma
+from openmcmc_tpu_torch.fused.layout import to_host
 from openmcmc_tpu_torch.linalg import structured as st
 from openmcmc_tpu_torch.parameters import (
     Identity,
@@ -63,7 +65,7 @@ def _scalar(mcmc, name) -> Optional[float]:
         return None
     if value.numel() != 1:
         return None
-    return float(value.reshape(()))
+    return float(to_host(value.reshape(())))
 
 
 def _column(value) -> Optional[np.ndarray]:
@@ -72,7 +74,7 @@ def _column(value) -> Optional[np.ndarray]:
     cannot represent them)."""
     if value is None or isinstance(value, st.STRUCTURED_TYPES):
         return None
-    arr = value.detach().cpu().numpy()
+    arr = to_host(value).numpy()
     if arr.ndim <= 1:
         return arr.reshape(-1)
     if arr.ndim == 2 and arr.shape[1] == 1:
@@ -84,7 +86,7 @@ def _initial_scalar(mcmc, name) -> Optional[float]:
     value = mcmc.initial_chain_state.get(name)
     if value is None or value.numel() != 1:
         return None
-    return float(value.reshape(()))
+    return float(to_host(value.reshape(())))
 
 
 def _identity_mean_name(dist) -> Optional[str]:
@@ -200,7 +202,7 @@ def _match_smoother(mcmc) -> Optional[Callable]:
         return None
     ptau = mcmc.data.get(sp_y[0])
     plam = mcmc.data.get(sp_b[0])
-    if not isinstance(ptau, st.Diagonal) or not bool(torch.all(ptau.diag_ > 0.0)):
+    if not isinstance(ptau, st.Diagonal) or not bool(to_host(torch.all(ptau.diag_ > 0.0))):
         return None
     from openmcmc_tpu_torch.fused.spectral import MAX_P_SMOOTHER, MAX_P_SMOOTHER_STREAM, run_spectral_smoother
 
@@ -253,9 +255,11 @@ def _match_smoother(mcmc) -> Optional[Callable]:
         # convention for log|P0|: the clamped structured Cholesky, which for an
         # intrinsic prior differs from sum log s; its sequential tridiagonal
         # recurrence runs on a host copy rather than as p tiny device launches
-        logdet_p0 = st.host_log_det(plam)
-        plam_dense = st.to_dense(st.to(plam, "cpu")).numpy()
-        noise_host = ptau.diag_.detach().cpu().numpy()
+        (field,) = dataclasses.fields(plam)  # a structured matrix holds one tensor: one read
+        plam_host = dataclasses.replace(plam, **{field.name: to_host(getattr(plam, field.name))})
+        logdet_p0 = st.host_log_det(plam_host)
+        plam_dense = st.to_dense(plam_host).numpy()
+        noise_host = to_host(ptau.diag_).numpy()
 
         def run(seed, bit_source=None, resume=None):
             init, n_burn = resume_init(resume)

@@ -36,6 +36,7 @@ from openmcmc_tpu_torch.fused.layout import chain_rows, store_index
 from openmcmc_tpu_torch.fused.spectral import _lgam
 from openmcmc_tpu_torch.linalg import gmrf
 from openmcmc_tpu_torch.linalg import structured as st
+from openmcmc_tpu_torch.utils import profiling
 
 OPEN_BOUND = 1e30  # an open side of the box, as the JAX package passes it
 
@@ -61,6 +62,7 @@ def _row_sum(terms: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+@profiling.traced("kernel.gmrf_smoother")
 def gmrf_smoother_plain(seed, p0d, p0c, y, d, mu, p0mu, lam0, tau0, *, lo=None, hi=None, b_init=None,
                         logdet_p0, logdet_d, a_lam, b_lam, a_tau, b_tau, n_burn, n_keep, n_thin=1,
                         bit_source=None):
@@ -205,6 +207,7 @@ def _check_inputs(p0d, p0c, y, d, mu, p0mu, lam0, tau0, lo, hi, b_init):
             raise ValueError(f"{name}: expected a float32 tensor on {y.device}")
 
 
+@profiling.traced("kernel.gmrf_smoother")
 def gmrf_smoother_kernel(seed, p0d, p0c, y, d, mu, p0mu, lam0, tau0, *, lo=None, hi=None, b_init=None,
                          logdet_p0, logdet_d, a_lam, b_lam, a_tau, b_tau, n_burn, n_keep, n_thin=1):
     """Launch ``csrc/gmrf_smoother.cu`` on CUDA tensors (arguments and results
@@ -251,12 +254,9 @@ def gmrf_smoother_kernel(seed, p0d, p0c, y, d, mu, p0mu, lam0, tau0, *, lo=None,
             hi.data_ptr() if truncated else None, lam0.data_ptr(), tau0.data_ptr(), s1.data_ptr(), s2.data_ptr(),
             out_b.data_ptr(), out["lam"].data_ptr(), out["tau"].data_ptr(), out["log_post"].data_ptr(), stream,
         )
-    gmrf_smoother_kernel.launches += 1
+    profiling.count("launch.gmrf_smoother")
     _build.check(err, "gmrf_smoother")
     return {"b": out_b, **out}
-
-
-gmrf_smoother_kernel.launches = 0
 
 
 def gmrf_smoother(seed, p0d, p0c, y, d, mu, p0mu, lam0, tau0, *, bit_source=None, **kw):

@@ -3,12 +3,16 @@
 ``chain_slice`` is not ported: it dodges an XLA copy of a no-op slice, and the
 port's kernels write exactly ``n_chains`` rows. ``chain_rows``, the per-chain
 (lam, tau) input rows that the conjugate engines' runners share, is the port's
-own.
+own, as are the two transfer helpers: :func:`upload`, which counts each
+host-to-device copy of an engine's inputs, and :func:`to_host`, which counts
+each read from the card.
 """
 
 from __future__ import annotations
 
 import torch
+
+from openmcmc_tpu_torch.utils import profiling
 
 
 def store_index(it: int, n_burn: int, n_thin: int) -> int:
@@ -33,5 +37,26 @@ def chain_rows(n_chains, lam0, tau0, init, device):
     (scalars or per-chain values) broadcast over chains."""
     if init is not None:
         lam0, tau0 = init["lam"], init["tau"]
-    return [torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1).expand(n_chains).contiguous()
-            for v in (lam0, tau0)]
+    return [upload(v, device).reshape(-1).expand(n_chains).contiguous() for v in (lam0, tau0)]
+
+
+def upload(value, device) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype=torch.float32, device=device)``. A host
+    value bound for the card is converted on the host and copied (one pageable
+    copy, which waits for the stream), counted as ``h2d.copies`` and
+    ``h2d.bytes``."""
+    device = torch.device(device)
+    if device.type == "cpu" or (torch.is_tensor(value) and value.device.type != "cpu"):
+        return torch.as_tensor(value, dtype=torch.float32, device=device)
+    host = torch.as_tensor(value, dtype=torch.float32)
+    profiling.count("h2d.copies")
+    profiling.count("h2d.bytes", host.numel() * host.element_size())
+    return host.to(device)
+
+
+def to_host(value: torch.Tensor) -> torch.Tensor:
+    """``value`` on the host. A copy off the card waits for it: each is
+    counted as ``sync.host_reads``."""
+    if value.device.type != "cpu":
+        profiling.count("sync.host_reads")
+    return value.detach().cpu()

@@ -37,8 +37,9 @@ import numpy as np
 import torch
 
 from openmcmc_tpu_torch.fused import prng
-from openmcmc_tpu_torch.fused.layout import chain_rows, store_index
+from openmcmc_tpu_torch.fused.layout import chain_rows, store_index, upload
 from openmcmc_tpu_torch.fused.spectral import _lgam
+from openmcmc_tpu_torch.utils import profiling
 
 MAX_P = 16
 
@@ -63,6 +64,7 @@ def sufficient_statistics(X, y, plam, ptau):
     return G.contiguous(), c, scal
 
 
+@profiling.traced("kernel.linreg")
 def linreg_sweeps_plain(seed, G, c, plam, mu, scal, lam0, tau0, *, n_obs, a_lam, b_lam, a_tau, b_tau, n_burn,
                         n_keep, n_thin=1, bit_source=None):
     """Plain PyTorch version of the kernel: all sweeps for all chains.
@@ -188,6 +190,7 @@ def _check_inputs(G, c, plam, mu, scal, lam0, tau0):
             raise ValueError(f"{name}: expected a contiguous float32 tensor on {G.device}")
 
 
+@profiling.traced("kernel.linreg")
 def linreg_sweeps_kernel(seed, G, c, plam, mu, scal, lam0, tau0, *, n_obs, a_lam, b_lam, a_tau, b_tau, n_burn,
                          n_keep, n_thin=1):
     """Launch ``csrc/linreg.cu`` on CUDA tensors (arguments and results as
@@ -219,12 +222,9 @@ def linreg_sweeps_kernel(seed, G, c, plam, mu, scal, lam0, tau0, *, n_obs, a_lam
             lam0.data_ptr(), tau0.data_ptr(), out_beta.data_ptr(), out["lam"].data_ptr(), out["tau"].data_ptr(),
             out["log_post"].data_ptr(), stream,
         )
-    linreg_sweeps_kernel.launches += 1
+    profiling.count("launch.linreg")
     _build.check(err, "linreg")
     return {"beta": out_beta, **out}
-
-
-linreg_sweeps_kernel.launches = 0
 
 
 def linreg_sweeps(seed, G, c, plam, mu, scal, lam0, tau0, *, bit_source=None, **kw):
@@ -243,8 +243,7 @@ def linreg_sweeps(seed, G, c, plam, mu, scal, lam0, tau0, *, bit_source=None, **
 def _vector(v, n, fill, device) -> torch.Tensor:
     if v is None:
         return torch.full((n,), fill, dtype=torch.float32, device=device)
-    t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v, np.float32))
-    return t.to(device=device, dtype=torch.float32).reshape(-1)
+    return upload(v if torch.is_tensor(v) else np.array(v, np.float32), device).reshape(-1)
 
 
 def run_fused_linreg(
@@ -264,15 +263,16 @@ def run_fused_linreg(
     replaces Philox (CPU only). Returns ``beta`` (chains, n_iter, p) and
     ``lam``/``tau``/``log_post`` (chains, n_iter)."""
     device = torch.device(device)
-    X = X if torch.is_tensor(X) else torch.from_numpy(np.array(X, np.float32))
-    X = X.to(device=device, dtype=torch.float32)
-    n_obs, p = X.shape
-    if p > MAX_P:
-        raise ValueError(f"fused linreg supports p <= {MAX_P}, got {p}")
-    y = _vector(y, n_obs, 0.0, device)
-    mu, plam, ptau = _vector(mu, p, 0.0, device), _vector(plam_diag, p, 1.0, device), _vector(ptau_diag, n_obs, 1.0, device)
-    G, c, scal = sufficient_statistics(X, y, plam, ptau)
-    rows = chain_rows(n_chains, lam0, tau0, init, device)
+    with profiling.trace_annotated("fused.prepare"):
+        X = upload(X if torch.is_tensor(X) else np.array(X, np.float32), device)
+        n_obs, p = X.shape
+        if p > MAX_P:
+            raise ValueError(f"fused linreg supports p <= {MAX_P}, got {p}")
+        y = _vector(y, n_obs, 0.0, device)
+        mu, plam = _vector(mu, p, 0.0, device), _vector(plam_diag, p, 1.0, device)
+        ptau = _vector(ptau_diag, n_obs, 1.0, device)
+        G, c, scal = sufficient_statistics(X, y, plam, ptau)
+        rows = chain_rows(n_chains, lam0, tau0, init, device)
     return linreg_sweeps(
         seed, G, c, plam, mu, scal, *rows, n_obs=float(n_obs), a_lam=float(a_lam), b_lam=float(b_lam),
         a_tau=float(a_tau), b_tau=float(b_tau), n_burn=int(n_burn), n_keep=int(n_iter), n_thin=int(n_thin),

@@ -47,6 +47,7 @@ import torch
 
 from openmcmc_tpu_torch.fused import prng
 from openmcmc_tpu_torch.fused.layout import store_index
+from openmcmc_tpu_torch.utils import profiling
 
 MAX_K = 32
 MAX_N = 1 << 20
@@ -118,6 +119,7 @@ def _allocate(data, n, threads, mu, lam, u_bits):
     return stats[:, :, 0], z.reshape(mu.shape[0], width)[:, :n]
 
 
+@profiling.traced("kernel.mixture")
 def mixture_sweeps_plain(seed, scal, data, n_chains, *, k_comp, n, threads, conjugate, has_domain, step, n_burn,
                          n_keep, n_thin=1, store_z=False, bit_source=None):
     """Plain PyTorch version of the kernel: all sweeps for all chains.
@@ -241,6 +243,7 @@ def _check_inputs(scal, data, n_chains, k_comp, n, threads):
         raise ValueError("need n_chains >= 1")
 
 
+@profiling.traced("kernel.mixture")
 def mixture_sweeps_kernel(seed, scal, data, n_chains, *, k_comp, n, threads, conjugate, has_domain, step, n_burn,
                           n_keep, n_thin=1, store_z=False):
     """Launch ``csrc/mixture.cu`` on CUDA ``scal`` and ``data`` (arguments and
@@ -273,14 +276,11 @@ def mixture_sweeps_kernel(seed, scal, data, n_chains, *, k_comp, n, threads, con
             ctypes.byref(prm), scal.data_ptr(), data.data_ptr(), out["means"].data_ptr(), out["lams"].data_ptr(),
             out["log_post"].data_ptr(), out["accept_total"].data_ptr(), z.data_ptr(), stream,
         )
-    mixture_sweeps_kernel.launches += 1
+    profiling.count("launch.mixture")
     _build.check(err, "mixture")
     if store_z:
         out["z"] = z
     return out
-
-
-mixture_sweeps_kernel.launches = 0
 
 
 def mixture_sweeps(seed, scal, data, n_chains, *, bit_source=None, **kw):

@@ -38,6 +38,7 @@ import torch
 
 from openmcmc_tpu_torch.fused import prng
 from openmcmc_tpu_torch.fused.layout import store_index
+from openmcmc_tpu_torch.utils import profiling
 
 MAX_P = 16
 
@@ -81,6 +82,7 @@ def step_constants(p: int, step: float) -> dict:
             "c_norm": 0.5 * p * (prng.LOG_2PI + math.log(s2))}
 
 
+@profiling.traced("kernel.mmala")
 def mmala_sweeps_plain(seed, scal, n_chains, *, p, n_obs, step, adapt, target, rate, n_burn, n_keep, n_thin=1,
                        bit_source=None):
     """Plain PyTorch version of the kernel: all sweeps for all chains.
@@ -204,6 +206,7 @@ def _check_inputs(scal, n_chains, p):
         raise ValueError("need n_chains >= 1")
 
 
+@profiling.traced("kernel.mmala")
 def mmala_sweeps_kernel(seed, scal, n_chains, *, p, n_obs, step, adapt, target, rate, n_burn, n_keep, n_thin=1):
     """Launch ``csrc/mmala.cu`` on a CUDA ``scal`` (arguments and results as
     :func:`mmala_sweeps_plain`). Launches on the current stream, does not
@@ -232,12 +235,9 @@ def mmala_sweeps_kernel(seed, scal, n_chains, *, p, n_obs, step, adapt, target, 
             ctypes.byref(prm), scal.data_ptr(), out_b.data_ptr(), out["log_post"].data_ptr(),
             out["accept"].data_ptr(), last["accept_total"].data_ptr(), last["log_step"].data_ptr(), stream,
         )
-    mmala_sweeps_kernel.launches += 1
+    profiling.count("launch.mmala")
     _build.check(err, "mmala")
     return {"beta": out_b, **out, **last}
-
-
-mmala_sweeps_kernel.launches = 0
 
 
 def mmala_sweeps(seed, scal, n_chains, *, bit_source=None, **kw):

@@ -31,6 +31,8 @@ import ctypes
 import numpy as np
 import torch
 
+from openmcmc_tpu_torch.utils import profiling
+
 LOG_2PI = 1.8378770664093453
 GAMMA_ROUNDS = 6
 _SQRT2 = 1.4142135623730951
@@ -336,6 +338,7 @@ def draws_plain(seed: int, ctr: torch.Tensor, a1: float, a2: float, rate1: float
     return uni, nrm, torch.cat([g1, g2], dim=1)
 
 
+@profiling.traced("kernel.prng_draws")
 def draws(seed: int, ctr: torch.Tensor, a1: float, a2: float, rate1: float = 1.0, rate2: float = 1.0):
     """Uniforms (n, 4), normals (n, 4) and Gamma pairs (n, 2) for a (n, 4) int32
     tensor of Philox counters (uint32 bit patterns).
@@ -362,12 +365,9 @@ def draws(seed: int, ctr: torch.Tensor, a1: float, a2: float, rate1: float = 1.0
         err = lib.prng_draws_launch(
             ctypes.byref(prm), ctr.data_ptr(), uni.data_ptr(), nrm.data_ptr(), gam.data_ptr(), n, stream
         )
-    draws.launches += 1
+    profiling.count("launch.prng_draws")
     _build.check(err, "prng_draws")
     return uni, nrm, gam
-
-
-draws.launches = 0
 
 
 def truncnorm_draws_plain(seed: int, ctr: torch.Tensor, x, mu, scale, lo, hi):
@@ -378,6 +378,7 @@ def truncnorm_draws_plain(seed: int, ctr: torch.Tensor, x, mu, scale, lo, hi):
     return erf_poly(x), truncnorm_draw(mu, scale, lo, hi, tuple(words.shape), lambda shape: words)
 
 
+@profiling.traced("kernel.truncnorm_draws")
 def truncnorm_draws(seed: int, ctr: torch.Tensor, x, mu, scale, lo, hi):
     """``erf_poly(x)`` and truncated-normal draws on [lo, hi] (all (n, 4) float32)
     for a (n, 4) int32 tensor of Philox counters: the device functions the Thomas
@@ -404,12 +405,9 @@ def truncnorm_draws(seed: int, ctr: torch.Tensor, x, mu, scale, lo, hi):
             int(seed) & _MASK32, ctr.data_ptr(), x.data_ptr(), mu.data_ptr(), scale.data_ptr(), lo.data_ptr(),
             hi.data_ptr(), erf.data_ptr(), out.data_ptr(), n, stream,
         )
-    truncnorm_draws.launches += 1
+    profiling.count("launch.truncnorm_draws")
     _build.check(err, "truncnorm_draws")
     return erf, out
-
-
-truncnorm_draws.launches = 0
 
 
 def gamma_elem_sites(seed: int, ctr: torch.Tensor):
@@ -427,6 +425,7 @@ def gamma_elem_draws_plain(seed: int, ctr: torch.Tensor, a_star: torch.Tensor, r
     return gamma_mt_elem(a_star, rate, SiteStream(gamma_elem_sites(seed, ctr)))
 
 
+@profiling.traced("kernel.gamma_elem_draws")
 def gamma_elem_draws(seed: int, ctr: torch.Tensor, a_star: torch.Tensor, rate: torch.Tensor):
     """Gamma(a_star) / rate draws (n, 4) for a (n, 4) int32 tensor of counter rows
     (chain, sweep, site0, group): element j of a row is the ``gamma_mt_elem``
@@ -450,9 +449,6 @@ def gamma_elem_draws(seed: int, ctr: torch.Tensor, a_star: torch.Tensor, rate: t
         stream = torch.cuda.current_stream(ctr.device).cuda_stream
         err = lib.gamma_elem_draws_launch(int(seed) & _MASK32, ctr.data_ptr(), a_star.data_ptr(), rate.data_ptr(),
                                           out.data_ptr(), ctr.shape[0], stream)
-    gamma_elem_draws.launches += 1
+    profiling.count("launch.gamma_elem_draws")
     _build.check(err, "gamma_elem_draws")
     return out
-
-
-gamma_elem_draws.launches = 0

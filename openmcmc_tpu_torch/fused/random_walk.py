@@ -45,6 +45,7 @@ import torch
 
 from openmcmc_tpu_torch.fused import prng
 from openmcmc_tpu_torch.fused.layout import store_index
+from openmcmc_tpu_torch.utils import profiling
 
 MAX_P = 32
 
@@ -74,6 +75,7 @@ def _log_post(h, s1, s2, mu, tau, lam, n_obs, const):
     return total
 
 
+@profiling.traced("kernel.random_walk")
 def rw_sweeps_plain(seed, scal, n_chains, *, p, n_obs, const, log_step0, trunc, adapt, target, rate, n_burn,
                     n_keep, n_thin=1, bit_source=None):
     """Plain PyTorch version of the kernel: all sweeps for all chains.
@@ -165,6 +167,7 @@ def _check_inputs(scal, n_chains, p, trunc):
         raise ValueError("need n_chains >= 1")
 
 
+@profiling.traced("kernel.random_walk")
 def rw_sweeps_kernel(seed, scal, n_chains, *, p, n_obs, const, log_step0, trunc, adapt, target, rate, n_burn,
                      n_keep, n_thin=1):
     """Launch ``csrc/random_walk.cu`` on a CUDA ``scal`` (arguments and results
@@ -193,12 +196,9 @@ def rw_sweeps_kernel(seed, scal, n_chains, *, p, n_obs, const, log_step0, trunc,
             ctypes.byref(prm), scal.data_ptr(), out_h.data_ptr(), out["log_post"].data_ptr(),
             out["accept"].data_ptr(), last["accept_total"].data_ptr(), last["log_step"].data_ptr(), stream,
         )
-    rw_sweeps_kernel.launches += 1
+    profiling.count("launch.random_walk")
     _build.check(err, "random_walk")
     return {"h": out_h, **out, **last}
-
-
-rw_sweeps_kernel.launches = 0
 
 
 def rw_sweeps(seed, scal, n_chains, *, bit_source=None, **kw):

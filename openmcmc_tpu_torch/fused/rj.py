@@ -61,6 +61,7 @@ import torch
 
 from openmcmc_tpu_torch.fused import prng
 from openmcmc_tpu_torch.fused.layout import store_index
+from openmcmc_tpu_torch.utils import profiling
 
 MAX_N_MAX = 32
 OUT_ROWS = 8  # k, log_post, acc_mmala, acc_theta, acc_omega, acc_rj, prop_theta, prop_omega
@@ -337,6 +338,7 @@ def _gram(bas):
     return dsum(bas[:, :, None, :] * bas[:, None, :, :])
 
 
+@profiling.traced("kernel.rj")
 def rj_sweeps_plain(data, init, n_chains, *, config: RjConfig, bit_source=None):
     """Plain PyTorch version of the kernel: every sweep for every chain.
 
@@ -650,6 +652,7 @@ def _check_inputs(config: RjConfig, data, init, n_chains):
         raise ValueError(f"config built for {c.n_chains} chains, called with {n_chains}")
 
 
+@profiling.traced("kernel.rj")
 def rj_sweeps_kernel(data, init, n_chains, *, config: RjConfig):
     """Launch ``csrc/rj.cu`` on CUDA ``data`` and ``init`` (arguments and result
     as :func:`rj_sweeps_plain`). Launches on the current stream, does not
@@ -671,12 +674,9 @@ def rj_sweeps_kernel(data, init, n_chains, *, config: RjConfig):
         stream = torch.cuda.current_stream(init.device).cuda_stream
         err = lib.rj_launch(ctypes.byref(c), data.data_ptr(), init.data_ptr(), scratch.data_ptr(), out.data_ptr(),
                             stream)
-    rj_sweeps_kernel.launches += 1
+    profiling.count("launch.rj")
     _build.check(err, "rj")
     return out
-
-
-rj_sweeps_kernel.launches = 0
 
 
 def rj_sweeps(data, init, n_chains, *, config: RjConfig, bit_source=None):

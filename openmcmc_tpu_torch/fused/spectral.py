@@ -65,7 +65,8 @@ import torch
 import torch.nn.functional as F
 
 from openmcmc_tpu_torch.fused import prng
-from openmcmc_tpu_torch.fused.layout import chain_rows, store_index
+from openmcmc_tpu_torch.fused.layout import chain_rows, store_index, upload
+from openmcmc_tpu_torch.utils import profiling
 
 MAX_P = 256  # spectral linear regression; past it the generic driver runs
 PAD = 8  # p is rounded up to this in the JAX kernel's (p_pad, chains) sums
@@ -150,6 +151,7 @@ def _lgam(a: float, b: float) -> float:
     return float(a * np.log(b) - math.lgamma(a))
 
 
+@profiling.traced("kernel.spectral_smoother")
 def smoother_sweeps_plain(seed, V, s, wy, wmu, lam0, tau0, *, logdet_p0, logdet_d, a_lam, b_lam,
                           a_tau, b_tau, n_burn, n_keep, n_thin=1, bit_source=None):
     """Plain PyTorch version of the kernel: all sweeps for all chains.
@@ -222,6 +224,7 @@ def _check_inputs(V, vectors: dict, lam0, tau0):
             raise ValueError(f"{name}: expected a contiguous float32 tensor on {V.device}")
 
 
+@profiling.traced("kernel.spectral_smoother")
 def smoother_sweeps_kernel(seed, V, s, wy, wmu, lam0, tau0, *, logdet_p0, logdet_d, a_lam, b_lam,
                            a_tau, b_tau, n_burn, n_keep, n_thin=1):
     """Launch ``csrc/spectral_smoother.cu`` on CUDA tensors (arguments as
@@ -256,12 +259,9 @@ def smoother_sweeps_kernel(seed, V, s, wy, wmu, lam0, tau0, *, logdet_p0, logdet
             lam0.data_ptr(), tau0.data_ptr(), out_b.data_ptr(), out["lam"].data_ptr(),
             out["tau"].data_ptr(), out["log_post"].data_ptr(), stream,
         )
-    smoother_sweeps_kernel.launches += 1
+    profiling.count("launch.spectral_smoother")
     _build.check(err, "spectral_smoother")
     return {"b": out_b, **out}
-
-
-smoother_sweeps_kernel.launches = 0
 
 
 def smoother_sweeps(seed, V, s, wy, wmu, lam0, tau0, *, bit_source=None, **kw):
@@ -292,13 +292,12 @@ def run_spectral_smoother(
     ``device`` is the card unless the caller asks for the CPU.
     ``bit_source(sweep, site, shape)`` replaces Philox (CPU only). Returns
     ``b`` (chains, n_iter, p) and ``lam``/``tau``/``log_post`` (chains, n_iter)."""
-    prep = prepare(y, P0, noise_diag=noise_diag, mu0=mu0, logdet_p0=logdet_p0)
-    device = torch.device(device)
-    f32 = dict(dtype=torch.float32, device=device)
-    rows = chain_rows(n_chains, lam0, tau0, init, device)
+    with profiling.trace_annotated("fused.prepare"):
+        prep = prepare(y, P0, noise_diag=noise_diag, mu0=mu0, logdet_p0=logdet_p0)
+        rows = chain_rows(n_chains, lam0, tau0, init, device)
+        V, s, wy, wmu = (upload(prep[k], device) for k in ("V", "s", "wy", "wmu"))
     return smoother_sweeps(
-        seed, torch.as_tensor(prep["V"], **f32), *(torch.as_tensor(prep[k], **f32) for k in ("s", "wy", "wmu")),
-        *rows, logdet_p0=float(np.float32(prep["logdet_p0"])), logdet_d=float(np.float32(prep["logdet_d"])),
+        seed, V, s, wy, wmu, *rows, logdet_p0=float(np.float32(prep["logdet_p0"])), logdet_d=float(np.float32(prep["logdet_d"])),
         a_lam=float(a_lam), b_lam=float(b_lam), a_tau=float(a_tau), b_tau=float(b_tau),
         n_burn=int(n_burn), n_keep=int(n_iter), n_thin=int(n_thin), bit_source=bit_source,
     )
@@ -371,11 +370,13 @@ def window_sums(terms: torch.Tensor) -> torch.Tensor:
 STORE_DEPTH, STORE_COLS = 16, 256  # csrc/spectral_store.cu's k-tile rows and tile columns (kDepth, kCols)
 
 
+@profiling.traced("kernel.spectral_store")
 def spectral_store_plain(w, V):
     """Plain version of the store kernel: beta = w V' for (..., p) rows w."""
     return torch.matmul(w, V.T)
 
 
+@profiling.traced("kernel.spectral_store")
 def spectral_store_kernel(rows, V):
     """Launch ``csrc/spectral_store.cu``: the (..., p) ``rows`` (contiguous
     float32 on the card, p <= MAX_P) become rows V' in place, each output summed
@@ -399,14 +400,12 @@ def spectral_store_kernel(rows, V):
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream(V.device).cuda_stream
         err = lib.spectral_store_launch(rows.data_ptr(), vt.data_ptr(), p, rows.numel() // p, stream)
-    spectral_store_kernel.launches += 1
+    profiling.count("launch.spectral_store")
     _build.check(err, "spectral_store")
     return rows
 
 
-spectral_store_kernel.launches = 0
-
-
+@profiling.traced("kernel.spectral_linreg")
 def spectral_linreg_sweeps_plain(seed, V, s, wmu, cv, lam0, tau0, *, yPy, logdet_plam, logdet_ptau, n_obs, a_lam,
                                  b_lam, a_tau, b_tau, n_burn, n_keep, n_thin=1, bit_source=None):
     """Plain PyTorch version of the K5 kernel: all sweeps for all chains.
@@ -494,6 +493,7 @@ class LinregWideParams(ctypes.Structure):
     ]
 
 
+@profiling.traced("kernel.spectral_linreg")
 def spectral_linreg_sweeps_kernel(seed, V, s, wmu, cv, lam0, tau0, *, yPy, logdet_plam, logdet_ptau, n_obs, a_lam,
                                   b_lam, a_tau, b_tau, n_burn, n_keep, n_thin=1):
     """Launch ``csrc/spectral_linreg.cu`` on CUDA tensors (arguments and results
@@ -529,13 +529,10 @@ def spectral_linreg_sweeps_kernel(seed, V, s, wmu, cv, lam0, tau0, *, yPy, logde
             ctypes.byref(prm), s.data_ptr(), wmu.data_ptr(), cv.data_ptr(), lam0.data_ptr(), tau0.data_ptr(),
             out_beta.data_ptr(), out["lam"].data_ptr(), out["tau"].data_ptr(), out["log_post"].data_ptr(), stream,
         )
-    spectral_linreg_sweeps_kernel.launches += 1
+    profiling.count("launch.spectral_linreg")
     _build.check(err, "spectral_linreg")
     spectral_store_kernel(out_beta, V)
     return {"beta": out_beta, **out}
-
-
-spectral_linreg_sweeps_kernel.launches = 0
 
 
 def spectral_linreg_sweeps(seed, V, s, wmu, cv, lam0, tau0, *, bit_source=None, **kw):
@@ -617,6 +614,7 @@ def mmala_step_constants(p: int, step: float) -> dict:
     return {"step": step, "s2": s2, "c_pull": 0.5 * s2, "c_norm": 0.5 * p * (prng.LOG_2PI + math.log(s2))}
 
 
+@profiling.traced("kernel.spectral_mmala")
 def spectral_mmala_sweeps_plain(seed, V, d, cw, isd, w0, n_chains, *, log_const, half_logdetA, step, adapt,
                                 target, rate, n_burn, n_keep, n_thin=1, bit_source=None):
     """Plain PyTorch version of the K9 kernel: all sweeps for all chains.
@@ -732,6 +730,7 @@ def _check_mmala_inputs(V, vectors: dict, n_chains):
             raise ValueError(f"{name}: expected a contiguous float32 tensor on {V.device}")
 
 
+@profiling.traced("kernel.spectral_mmala")
 def spectral_mmala_sweeps_kernel(seed, V, d, cw, isd, w0, n_chains, *, log_const, half_logdetA, step, adapt,
                                  target, rate, n_burn, n_keep, n_thin=1):
     """Launch ``csrc/spectral_mmala.cu`` on CUDA tensors (arguments and results
@@ -764,13 +763,10 @@ def spectral_mmala_sweeps_kernel(seed, V, d, cw, isd, w0, n_chains, *, log_const
             out["log_post"].data_ptr(), out["accept"].data_ptr(), last["accept_total"].data_ptr(),
             last["log_step"].data_ptr(), stream,
         )
-    spectral_mmala_sweeps_kernel.launches += 1
+    profiling.count("launch.spectral_mmala")
     _build.check(err, "spectral_mmala")
     spectral_store_kernel(out_b, V)
     return {"beta": out_b, **out, **last}
-
-
-spectral_mmala_sweeps_kernel.launches = 0
 
 
 def spectral_mmala_sweeps(seed, V, d, cw, isd, w0, n_chains, *, bit_source=None, **kw):

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from openmcmc_tpu_torch.fused import prng
+from openmcmc_tpu_torch.utils import profiling
 
 N_ROUNDS = 6
 N_SITES = 3 * N_ROUNDS + 1
@@ -76,6 +77,7 @@ def _marsaglia_tsang(seed, a, bit_source):
     return value.reshape(shape), rounds.reshape(shape)
 
 
+@profiling.traced("kernel.gamma")
 def gamma_plain(seed: int, a: torch.Tensor, bit_source=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: Gamma(a) draws, float32, a's shape.
 
@@ -92,6 +94,7 @@ def gamma_rounds(seed: int, a: torch.Tensor, bit_source=None) -> torch.Tensor:
     return _marsaglia_tsang(seed, a, bit_source)[1]
 
 
+@profiling.traced("kernel.gamma")
 def gamma_kernel(seed: int, a: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/gamma.cu`` once over every element of a CUDA float32
     tensor ``a`` of any shape; returns the draws in a's shape. Launches on the
@@ -108,12 +111,9 @@ def gamma_kernel(seed: int, a: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.gamma_launch(int(seed) & _MASK31, flat.shape[0], flat.data_ptr(), out.data_ptr(), stream)
-    gamma_kernel.launches += 1
+    profiling.count("launch.gamma")
     _build.check(err, "gamma")
     return out.reshape(a.shape)
-
-
-gamma_kernel.launches = 0
 
 
 def gamma(seed: int, a: torch.Tensor, *, bit_source=None) -> torch.Tensor:

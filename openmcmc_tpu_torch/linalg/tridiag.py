@@ -31,11 +31,13 @@ import ctypes
 import torch
 
 from openmcmc_tpu_torch.fused import prng
+from openmcmc_tpu_torch.utils import profiling
 
 _TWO_PI = 6.283185307179586
 _MASK32 = 0xFFFFFFFF
 
 
+@profiling.traced("kernel.tridiag_canonical")
 def sample_canonical_tridiag_plain(seed: int, call: int, a, c, b, bits=None):
     """Plain PyTorch version of the kernel: x (B, P) for a, c, b (B, P).
 
@@ -132,6 +134,7 @@ def launch(prm, a, c, b, x, scratch):
     _build.check(err, "tridiag_canonical")
 
 
+@profiling.traced("kernel.tridiag_canonical")
 def sample_canonical_tridiag_kernel(seed: int, call: int, a, c, b):
     """Launch ``csrc/tridiag_canonical.cu`` on CUDA float32 tensors (arguments
     as :func:`sample_canonical_tridiag_plain`). a, c and b are read in place as
@@ -143,12 +146,9 @@ def sample_canonical_tridiag_kernel(seed: int, call: int, a, c, b):
     if not 0 <= int(call) <= _MASK32:
         raise ValueError(f"tridiagonal kernel: call counter {call} does not fit 32 bits")
     args = launch_args(seed, call, a, c, b)
-    sample_canonical_tridiag_kernel.launches += 1
+    profiling.count("launch.tridiag_canonical")
     launch(*args)
     return args[4]
-
-
-sample_canonical_tridiag_kernel.launches = 0
 
 
 def sample_canonical_tridiag(seed: int, call: int, a, c, b, bits=None):

@@ -60,6 +60,7 @@ from openmcmc_tpu_torch.linalg import structured as st
 from openmcmc_tpu_torch.model import Model
 from openmcmc_tpu_torch.parameters import ScaledMatrix
 from openmcmc_tpu_torch.samplers.base import Sampler
+from openmcmc_tpu_torch.utils import profiling
 
 _MASK31 = 0x7FFFFFFF
 # odd multipliers: each product is a bijection modulo 2^31, as is x ^ (x >> 16)
@@ -313,6 +314,7 @@ class MCMC:
             data_key,
         )
 
+    @profiling.traced(profiling.RUN)
     def run(self, resume: Optional[MCMCResult] = None, engine: str = "generic", progress_every: Optional[int] = None,
             progress_callback=None, bit_source=None) -> MCMCResult:
         """Run burn-in and sampling for all chains.
@@ -344,6 +346,7 @@ class MCMC:
         the same bits)."""
         if engine not in ("generic", "auto", "fused"):
             raise ValueError("engine must be 'generic', 'auto' or 'fused'")
+        profiling.count("mcmc.runs")
         self._progress_every = progress_every
         self._progress_callback = progress_callback
         if resume is not None:
@@ -354,13 +357,16 @@ class MCMC:
         if engine in ("auto", "fused"):
             from openmcmc_tpu_torch.fused.dispatch import match_fused_engine
 
-            if resume is None:
-                key = self._run_config_key()
-                if key not in self._match_cache:
-                    self._match_cache[key] = match_fused_engine(self)
-                runner = self._match_cache[key]
-            else:
-                runner = match_fused_engine(self, resume=resume)
+            with profiling.trace_annotated("mcmc.match"):
+                if resume is None:
+                    key = self._run_config_key()
+                    hit = key in self._match_cache
+                    if not hit:
+                        self._match_cache[key] = match_fused_engine(self)
+                    runner = self._match_cache[key]
+                else:
+                    hit, runner = False, match_fused_engine(self, resume=resume)
+                profiling.annotate(hit=hit)
             if runner is not None:
                 return self._run_fused(runner, bit_source, resume)
             if engine == "fused":
@@ -372,6 +378,7 @@ class MCMC:
                 raise ValueError("engine='fused': no fused engine matches this model/sampler configuration")
         if bit_source is not None:
             raise ValueError("bit_source replaces a fused engine's bits; the generic driver draws from its generator")
+        profiling.annotate(engine="generic")
         return self._run_generic(resume)
 
     def run_mcmc(self) -> MCMCResult:
@@ -595,17 +602,19 @@ class MCMC:
         ``final_state`` is read from the runner's whole store, before the
         ``store_names`` filter."""
         run_seed = self.seed if resume is None else int(resume.final_key)
+        profiling.annotate(engine=runner.engine_name)
         store, log_post, stats = runner(run_seed & _MASK31, bit_source=bit_source)
-        final_state = {name: draws[:, -1] for name, draws in store.items()}
-        self.last_engine = runner.engine_name
-        declared = getattr(runner, "store_keys", None)
-        if declared is not None and not declared <= set(store):
-            raise RuntimeError(
-                f"fused engine {runner.engine_name}: declared store_keys {sorted(declared - set(store))} "
-                f"missing from the returned store {sorted(store)}"
-            )
-        fitted = self._fused_fitted(store)
-        store = {name: draws for name, draws in store.items() if name in self.store_names}
-        store.update(fitted)
-        return MCMCResult(store=store, log_post=log_post, stats=stats, final_state=final_state,
-                          final_key=next_key(run_seed), engine=runner.engine_name)
+        with profiling.trace_annotated("mcmc.repackage"):
+            final_state = {name: draws[:, -1] for name, draws in store.items()}
+            self.last_engine = runner.engine_name
+            declared = getattr(runner, "store_keys", None)
+            if declared is not None and not declared <= set(store):
+                raise RuntimeError(
+                    f"fused engine {runner.engine_name}: declared store_keys {sorted(declared - set(store))} "
+                    f"missing from the returned store {sorted(store)}"
+                )
+            fitted = self._fused_fitted(store)
+            store = {name: draws for name, draws in store.items() if name in self.store_names}
+            store.update(fitted)
+            return MCMCResult(store=store, log_post=log_post, stats=stats, final_state=final_state,
+                              final_key=next_key(run_seed), engine=runner.engine_name)

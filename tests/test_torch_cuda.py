@@ -20,17 +20,24 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def launches(kernel: str) -> int:
+    """The launches of ``kernel`` so far (the tracer's ``launch.<kernel>`` counter)."""
+    from openmcmc_tpu_torch.utils import profiling
+
+    return profiling.counters().get(f"launch.{kernel}", 0)
+
+
 @pytest.mark.parametrize("a1,a2", [(60.0, 51.0), (2.5, 0.5)])
 def test_prng_draws_kernel_matches_plain(dev, a1, a2):
     from openmcmc_tpu_torch.fused import prng
 
     ctr = torch.randint(0, 2**31 - 1, (4096, 4), dtype=torch.int32, generator=torch.Generator().manual_seed(0))
     ctr = ctr.to(dev)
-    before = prng.draws.launches
+    before = launches("prng_draws")
     got = prng.draws(5, ctr, a1, a2, 2.0, 0.5)
     want = prng.draws_plain(5, ctr, a1, a2, 2.0, 0.5)
     torch.cuda.synchronize()
-    assert prng.draws.launches == before + 1
+    assert launches("prng_draws") == before + 1
     assert torch.equal(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
@@ -53,11 +60,11 @@ def test_spectral_kernel_matches_plain(dev, p, n_chains, n_thin, a_lam):
     args += [torch.full((n_chains,), 3.0, **f32), torch.full((n_chains,), 1.0, **f32)]
     kw = dict(logdet_p0=prep["logdet_p0"], logdet_d=prep["logdet_d"], a_lam=a_lam, b_lam=1.0, a_tau=2.0,
               b_tau=1.0, n_burn=4, n_keep=6, n_thin=n_thin)
-    before = spectral.smoother_sweeps_kernel.launches
+    before = launches("spectral_smoother")
     got = spectral.smoother_sweeps(9, *args, **kw)
     want = spectral.smoother_sweeps_plain(9, *args, **kw)
     torch.cuda.synchronize()
-    assert spectral.smoother_sweeps_kernel.launches == before + 1
+    assert launches("spectral_smoother") == before + 1
     for name in ("b", "lam", "tau"):
         torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
     assert torch.all(torch.abs(got["log_post"] - want["log_post"])
@@ -125,11 +132,11 @@ def test_tridiag_kernel_matches_plain(dev, n_chains, p):
     from openmcmc_tpu_torch.linalg import tridiag
 
     a, c, b = _tridiag_inputs(dev, n_chains, p, seed=p)
-    before = tridiag.sample_canonical_tridiag_kernel.launches
+    before = launches("tridiag_canonical")
     got = tridiag.sample_canonical_tridiag(3, 41, a, c, b)
     want = tridiag.sample_canonical_tridiag_plain(3, 41, a, c, b)
     torch.cuda.synchronize()
-    assert tridiag.sample_canonical_tridiag_kernel.launches == before + 1
+    assert launches("tridiag_canonical") == before + 1
     assert got.shape == (n_chains, p) and got.is_contiguous()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
@@ -222,11 +229,11 @@ def test_generic_run_launches_k3_once_per_sweep(dev):
              "b_tau": 1.0}
     mcmc = MCMC(state, [NormalNormal("b", mdl), NormalGamma("lambda", mdl), NormalGamma("tau", mdl)], mdl,
                 n_burn=3, n_iter=5, n_thin=2, n_chains=64, seed=7)
-    before = tridiag.sample_canonical_tridiag_kernel.launches
+    before = launches("tridiag_canonical")
     res = mcmc.run()
     torch.cuda.synchronize()
     assert res.engine == "generic"
-    assert tridiag.sample_canonical_tridiag_kernel.launches == before + 16
+    assert launches("tridiag_canonical") == before + 16
     assert res.store["b"].device.type == "cuda" and tuple(res.store["b"].shape) == (64, 5, p, 1)
     assert all(bool(torch.all(torch.isfinite(v))) for v in (*res.store.values(), res.log_post))
 
@@ -246,11 +253,11 @@ def test_truncnorm_draws_kernel_matches_plain(dev):
     lo = torch.tensor([0.0, -1e30, 1.0, -1e30]).expand(n, 4).contiguous()
     hi = torch.tensor([1.2, 0.5, 1.001, 1e30]).expand(n, 4).contiguous()
     args = [t.to(dev) for t in (x, mu, scale, lo, hi)]
-    before = prng.truncnorm_draws.launches
+    before = launches("truncnorm_draws")
     got = prng.truncnorm_draws(3, ctr.to(dev), *args)
     want = prng.truncnorm_draws_plain(3, ctr.to(dev), *args)
     torch.cuda.synchronize()
-    assert prng.truncnorm_draws.launches == before + 1
+    assert launches("truncnorm_draws") == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
     assert bool(torch.all((got[1] >= args[3]) & (got[1] <= args[4])))
@@ -289,11 +296,11 @@ def test_gmrf_smoother_kernel_matches_plain(dev, truncated, n_chains, p):
 
     args, kw = _k4_inputs(dev, n_chains, p, truncated)
     kw.update(n_burn=3, n_keep=4, n_thin=2)
-    before = gs.gmrf_smoother_kernel.launches
+    before = launches("gmrf_smoother")
     got = gs.gmrf_smoother(13, *args, **kw)
     want = gs.gmrf_smoother_plain(13, *args, **kw)
     torch.cuda.synchronize()
-    assert gs.gmrf_smoother_kernel.launches == before + 1
+    assert launches("gmrf_smoother") == before + 1
     for name in ("b", "lam", "tau"):
         torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
     assert torch.all(torch.abs(got["log_post"] - want["log_post"])
@@ -400,11 +407,11 @@ def test_truncated_auto_run_launches_k4_once(dev):
              "P_tau": st.Diagonal(torch.ones(p)), "a_tau": 1.0, "b_tau": 1.0}
     mcmc = MCMC(state, [NormalNormal("b", mdl), NormalGamma("lambda", mdl), NormalGamma("tau", mdl)], mdl,
                 n_burn=10, n_iter=20, n_chains=96, seed=3)
-    before = gs.gmrf_smoother_kernel.launches
+    before = launches("gmrf_smoother")
     res = mcmc.run(engine="auto")
     torch.cuda.synchronize()
     assert res.engine == "fused_gmrf_smoother_truncated"
-    assert gs.gmrf_smoother_kernel.launches == before + 1
+    assert launches("gmrf_smoother") == before + 1
     b = res.store["b"]
     assert b.device.type == "cuda" and tuple(b.shape) == (96, 20, p, 1)
     assert float(b.min()) >= 0.0 and float(b.max()) <= 3.5
@@ -442,11 +449,11 @@ def test_linreg_kernel_matches_plain(dev, p, a_lam):
     args = [G, c, torch.as_tensor(extra["plam_diag"], **f32), torch.as_tensor(extra["mu"], **f32), scal,
             torch.full((200,), 0.5, **f32), torch.full((200,), 1.0, **f32)]
     kw = dict(n_obs=60.0, a_lam=a_lam, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=4, n_keep=6, n_thin=2)
-    before = linreg.linreg_sweeps_kernel.launches
+    before = launches("linreg")
     got = linreg.linreg_sweeps(5, *args, **kw)
     want = linreg.linreg_sweeps_plain(5, *args, **kw)
     torch.cuda.synchronize()
-    assert linreg.linreg_sweeps_kernel.launches == before + 1
+    assert launches("linreg") == before + 1
     assert tuple(got["beta"].shape) == (200, 6, p)
     _assert_kernel_matches_plain(got, want)
 
@@ -487,21 +494,19 @@ def test_spectral_store_kernel_matches_plain(dev, p):
     w = torch.as_tensor(rng.normal(size=(n_rows + 37, p)), **f32)
     V = torch.as_tensor(rng.normal(size=(p, p)) / np.sqrt(p), **f32)
     buf = w.clone()
-    before = spectral.spectral_store_kernel.launches
+    before = launches("spectral_store")
     out = spectral.spectral_store_kernel(buf[:n_rows], V)
     want = spectral.spectral_store_plain(w[:n_rows], V)
     torch.cuda.synchronize()
-    assert spectral.spectral_store_kernel.launches == before + 1
+    assert launches("spectral_store") == before + 1
     assert out.data_ptr() == buf.data_ptr()
     torch.testing.assert_close(buf[:n_rows], want, rtol=1e-5, atol=1e-5)
     assert torch.equal(buf[n_rows:], w[n_rows:])
 
 
-def _assert_store_launched(kernel_fn, before):
+def _assert_store_launched(kernel, before):
     """One launch of the sweep kernel and one of the store kernel since ``before``."""
-    from openmcmc_tpu_torch.fused import spectral
-
-    assert (kernel_fn.launches, spectral.spectral_store_kernel.launches) == (before[0] + 1, before[1] + 1)
+    assert (launches(kernel), launches("spectral_store")) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("N,p", [(80, 24), (600, 250)], ids=["p24", "p250"])
@@ -518,11 +523,11 @@ def test_spectral_linreg_kernel_matches_plain(dev, N, p):
     args += [torch.full((100,), 0.5, **f32), torch.full((100,), 1.0, **f32)]
     kw = {k: float(np.float32(prep[k])) for k in ("yPy", "logdet_plam", "logdet_ptau")}
     kw.update(n_obs=float(N), a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=3, n_keep=5, n_thin=2)
-    before = spectral.spectral_linreg_sweeps_kernel.launches, spectral.spectral_store_kernel.launches
+    before = launches("spectral_linreg"), launches("spectral_store")
     got = spectral.spectral_linreg_sweeps(3, *args, **kw)
     want = spectral.spectral_linreg_sweeps_plain(3, *args, **kw)
     torch.cuda.synchronize()
-    _assert_store_launched(spectral.spectral_linreg_sweeps_kernel, before)
+    _assert_store_launched("spectral_linreg", before)
     assert tuple(got["beta"].shape) == (100, 5, p)
     _assert_kernel_matches_plain(got, want)
     for name in ("lam", "tau", "log_post"):
@@ -561,11 +566,11 @@ def test_random_walk_kernel_matches_plain(dev, p, variant, n_chains):
                           lam=rng.uniform(0.5, 2.0, p), step=rng.uniform(0.2, 0.8, p), h0=0.1 * rng.normal(size=p),
                           domain=box, device=dev)
     kw.update(adapt=variant.endswith("adapting"), target=0.3, rate=0.1, n_burn=6, n_keep=5, n_thin=2)
-    before = rw.rw_sweeps_kernel.launches
+    before = launches("random_walk")
     got = rw.rw_sweeps(7, scal, n_chains, **kw)
     want = rw.rw_sweeps_plain(7, scal, n_chains, **kw)
     torch.cuda.synchronize()
-    assert rw.rw_sweeps_kernel.launches == before + 1
+    assert launches("random_walk") == before + 1
     assert tuple(got["h"].shape) == (n_chains, 5, p)
     _assert_mh_matches_plain(got, want, "h")
     if box is not None:
@@ -583,11 +588,11 @@ def test_mmala_kernel_matches_plain(dev, p, adapt):
                          mu0=extra["mu"])
     scal = torch.from_numpy(prep["scal"]).to(dev)
     kw = dict(p=p, n_obs=60.0, step=0.6, adapt=adapt, target=0.5, rate=0.1, n_burn=6, n_keep=5, n_thin=2)
-    before = mmala.mmala_sweeps_kernel.launches
+    before = launches("mmala")
     got = mmala.mmala_sweeps(4, scal, 300, **kw)
     want = mmala.mmala_sweeps_plain(4, scal, 300, **kw)
     torch.cuda.synchronize()
-    assert mmala.mmala_sweeps_kernel.launches == before + 1
+    assert launches("mmala") == before + 1
     assert tuple(got["beta"].shape) == (300, 5, p)
     _assert_mh_matches_plain(got, want, "beta")
 
@@ -605,11 +610,11 @@ def test_spectral_mmala_kernel_matches_plain(dev, N, p, adapt):
                                   plam_diag=extra["plam_diag"], mu0=extra["mu"])
     tensors, kw = spectral.mmala_inputs(prep, dev)
     kw.update(step=0.5, adapt=adapt, target=0.5, rate=0.1, n_burn=4, n_keep=5, n_thin=2)
-    before = spectral.spectral_mmala_sweeps_kernel.launches, spectral.spectral_store_kernel.launches
+    before = launches("spectral_mmala"), launches("spectral_store")
     got = spectral.spectral_mmala_sweeps(3, *tensors, 100, **kw)
     want = spectral.spectral_mmala_sweeps_plain(3, *tensors, 100, **kw)
     torch.cuda.synchronize()
-    _assert_store_launched(spectral.spectral_mmala_sweeps_kernel, before)
+    _assert_store_launched("spectral_mmala", before)
     assert tuple(got["beta"].shape) == (100, 5, p)
     _assert_mh_matches_plain(got, want, "beta")
     for name in ("log_post", "accept", "accept_total", "log_step"):
@@ -626,11 +631,11 @@ def test_gamma_elem_kernel_matches_plain(dev):
     ctr = torch.randint(0, 2**20, (4096, 4), dtype=torch.int32, generator=gen).to(dev)
     a = (1.0 + 199.0 * torch.rand((4096, 4), generator=gen)).to(dev)
     rate = (0.1 + 3.0 * torch.rand((4096, 4), generator=gen)).to(dev)
-    before = prng.gamma_elem_draws.launches
+    before = launches("gamma_elem_draws")
     got = prng.gamma_elem_draws(11, ctr, a, rate)
     want = prng.gamma_elem_draws_plain(11, ctr, a, rate)
     torch.cuda.synchronize()
-    assert prng.gamma_elem_draws.launches == before + 1
+    assert launches("gamma_elem_draws") == before + 1
     assert bool(torch.all(torch.isfinite(got))) and bool(torch.all(got > 0))
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
 
@@ -657,11 +662,11 @@ def test_mixture_kernel_matches_plain(dev, k, n, conjugate, box, n_chains):
     scal, data, kw = mixture.prepare(y, prior, 0.0, 0.01, 2.0, 1.0, np.linspace(-1.0, 1.0, k), np.ones(k),
                                      domain=domain, device=dev)
     kw.update(conjugate=conjugate, step=0.3, n_burn=3, n_keep=4, n_thin=2, store_z=True)
-    before = mixture.mixture_sweeps_kernel.launches
+    before = launches("mixture")
     got = mixture.mixture_sweeps(5, scal, data, n_chains, **kw)
     want = mixture.mixture_sweeps_plain(5, scal, data, n_chains, **kw)
     torch.cuda.synchronize()
-    assert mixture.mixture_sweeps_kernel.launches == before + 1
+    assert launches("mixture") == before + 1
     assert tuple(got["z"].shape) == (n_chains, 4, n) and got["z"].dtype == torch.int32
     assert torch.equal(got["z"], want["z"])
     for name in ("means", "lams"):
@@ -685,10 +690,10 @@ def test_mixture_kernel_rejects_misaligned_data(dev):
     kw.update(conjugate=True, step=0.3, n_burn=1, n_keep=1)
     shifted = torch.empty(data.numel() + 1, dtype=torch.float32, device=dev)[1:].view(data.shape)
     shifted.copy_(data)
-    before = mixture.mixture_sweeps_kernel.launches
+    before = launches("mixture")
     with pytest.raises(ValueError, match="16-byte"):
         mixture.mixture_sweeps(5, scal, shifted, 8, **kw)
-    assert mixture.mixture_sweeps_kernel.launches == before
+    assert launches("mixture") == before
 
 
 def _rj_inputs(dev, lik, p, n_data, n_chains, warm, seed=0):
@@ -738,11 +743,11 @@ def test_rj_kernel_matches_plain(dev, lik, p, n_data, n_chains, n_thin, warm):
     data, rows = _rj_inputs(dev, lik, p, n_data, n_chains, warm)
     config = rj.make_config(p, n_data, rho=min(8.0, p / 2 + 0.5), likelihood=lik, a_tau=2.0, b_tau=0.1,
                             stream=True, n_burn=2, n_keep=3, n_thin=n_thin, seed=11, n_chains=n_chains)
-    before = rj.rj_sweeps_kernel.launches
+    before = launches("rj")
     got = rj.rj_sweeps(data, rows, n_chains, config=config)
     want = rj.rj_sweeps_plain(data, rows, n_chains, config=config)
     torch.cuda.synchronize()
-    assert rj.rj_sweeps_kernel.launches == before + 1
+    assert launches("rj") == before + 1
     assert tuple(got.shape) == (n_chains, 3, 8 + int(lik) + 3 * p) and bool(torch.isfinite(got).all())
     assert torch.equal(got[:, :, :8], want[:, :, :8])  # k, log_post, the six counters
     assert torch.equal(got, want)
@@ -793,10 +798,10 @@ def test_rj_auto_run_launches_k11_once(dev):
     ]
     m = MCMC(state, samplers, mdl, n_burn=20, n_iter=50, n_chains=256, seed=1, store_names=["n_basis", "tau_y"],
              device=dev)
-    before = rj.rj_sweeps_kernel.launches
+    before = launches("rj")
     res = m.run(engine="auto")
     torch.cuda.synchronize()
-    assert res.engine == "fused_rj" and rj.rj_sweeps_kernel.launches == before + 1
+    assert res.engine == "fused_rj" and launches("rj") == before + 1
     assert res.store["n_basis"].dtype == torch.int32 and res.store["n_basis"].device.type == "cuda"
     assert res.store["tau_y"].shape == (256, 50, 1, 1) and bool(torch.all(res.store["tau_y"] > 0.0))
 
@@ -816,13 +821,84 @@ def test_gamma_kernel_matches_plain(dev, shape, shapes):
 
     n = int(np.prod(shape))
     a = torch.tensor(shapes).repeat(n // len(shapes) + 1)[:n].reshape(shape).to(dev)
-    before = gamma.gamma_kernel.launches
+    before = launches("gamma")
     got = gamma.gamma(3, a)
     want = gamma.gamma_plain(3, a)
     torch.cuda.synchronize()
-    assert gamma.gamma_kernel.launches == before + 1
+    assert launches("gamma") == before + 1
     assert got.shape == a.shape and bool(torch.all(got > 0) if min(shapes) >= 0.3 else torch.all(got >= 0))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert torch.equal(got, want)
     if shape == (1 << 20,):
         assert int((gamma.gamma_rounds(3, a) > 1).sum()) > 10_000
+
+
+def _cell_mcmc(dev, config):
+    """The MCMC of a benchmark configuration's model at its sizes (reference
+    example 4's smoother over 100 points with 8192 chains, example 3's
+    regression on 100 observations with 4096), warmed up: its match, the
+    eigenbasis and the kernel library are cached."""
+    from torch_models import linreg_mcmc, smoother_mcmc
+
+    if config == "smoother_ex4":
+        mcmc = smoother_mcmc(7, p=100, n_chains=8192, n_burn=200, n_iter=500, device=dev)
+    else:
+        mcmc = linreg_mcmc(7, n=100, n_chains=4096, n_burn=1000, n_iter=1000, device=dev)
+    mcmc.run(engine="auto")
+    torch.cuda.synchronize()
+    return mcmc
+
+
+@pytest.mark.parametrize("config", ["smoother_ex4", "linreg_ex3"])
+def test_counted_uploads_are_the_profilers_copies(dev, config):
+    """Per fit of each benchmark configuration's model, the tracer's ``h2d.copies``
+    (and no other host-to-device copy) is what the profiler sees: its count of
+    ``Memcpy HtoD`` events over five fits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openmcmc_tpu_torch.utils import profiling
+
+    mcmc = _cell_mcmc(dev, config)
+    with profiling.record() as rec, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for k in range(5):
+            mcmc.seed = 100 + k
+            mcmc.run(engine="auto")
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    copies = [e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda and "Memcpy HtoD" in e.name()]
+    per_fit = [counts.get("h2d.copies", 0) for counts in rec.runs.values()]
+    assert len(per_fit) == 5 and len(set(per_fit)) == 1 and per_fit[0] > 0
+    assert len(copies) == sum(per_fit)
+
+
+@pytest.mark.parametrize("config", ["smoother_ex4", "linreg_ex3"])
+def test_counted_host_reads_are_the_synchronising_operations(dev, config):
+    """Over 20 fits of each benchmark configuration's model, the first a match
+    miss (a new run configuration), every synchronising operation that
+    ``torch.cuda.set_sync_debug_mode`` reports is a counted read from the card
+    (``sync.host_reads``) or a counted pageable upload (``h2d.copies``, which
+    waits for the stream)."""
+    import warnings
+
+    from openmcmc_tpu_torch.utils import profiling
+
+    mcmc = _cell_mcmc(dev, config)
+    mcmc.n_iter += 1  # a new run configuration: the first fit below matches afresh
+    matches = len(mcmc._match_cache)
+    before = profiling.counters()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for k in range(20):
+                mcmc.seed = 200 + k
+                mcmc.run(engine="auto")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = profiling.counters()
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in ("sync.host_reads", "h2d.copies")}
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    where = {k: syncs.count(k) for k in sorted(set(syncs))}
+    assert len(mcmc._match_cache) == matches + 1 and delta["sync.host_reads"] > 0
+    assert len(syncs) == delta["sync.host_reads"] + delta["h2d.copies"], (delta, where)

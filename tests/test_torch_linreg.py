@@ -22,6 +22,7 @@ from openmcmc_tpu.fused import linreg as jlinreg
 from openmcmc_tpu.fused import spectral as jspectral
 from openmcmc_tpu_torch.fused import linreg as tlinreg
 from openmcmc_tpu_torch.fused import spectral as tspectral
+from openmcmc_tpu_torch.utils import profiling
 from test_torch_spectral import host_stats  # noqa: F401  (a fixture)
 
 torch.set_num_threads(2)
@@ -322,7 +323,7 @@ def test_spectral_store_kernel_refuses(case):
     V = torch.eye(p)
     rows = torch.zeros((5, p)) if case != "non_contiguous" else torch.zeros((p, 5)).t()
     match = {"cpu": "CUDA device", "non_contiguous": "contiguous", "p_above_256": "p <= 256"}[case]
-    before = tspectral.spectral_store_kernel.launches
+    before = profiling.counters().get("launch.spectral_store", 0)
     with pytest.raises(ValueError, match=match):
         tspectral.spectral_store_kernel(rows, V)
-    assert tspectral.spectral_store_kernel.launches == before
+    assert profiling.counters().get("launch.spectral_store", 0) == before
