@@ -223,6 +223,7 @@ def linreg_sweeps_kernel(seed, G, c, plam, mu, scal, lam0, tau0, *, n_obs, a_lam
             out["log_post"].data_ptr(), stream,
         )
     profiling.count("launch.linreg")
+    profiling.count("linreg.pipelined")  # every p takes the consumer/worker design (csrc/linreg.cu)
     _build.check(err, "linreg")
     return {"beta": out_beta, **out}
 

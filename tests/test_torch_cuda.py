@@ -20,11 +20,16 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def launches(kernel: str) -> int:
-    """The launches of ``kernel`` so far (the tracer's ``launch.<kernel>`` counter)."""
+def profiling_count(name: str) -> int:
+    """The tracer's counter ``name`` so far."""
     from openmcmc_tpu_torch.utils import profiling
 
-    return profiling.counters().get(f"launch.{kernel}", 0)
+    return profiling.counters().get(name, 0)
+
+
+def launches(kernel: str) -> int:
+    """The launches of ``kernel`` so far (the tracer's ``launch.<kernel>`` counter)."""
+    return profiling_count(f"launch.{kernel}")
 
 
 @pytest.mark.parametrize("a1,a2", [(60.0, 51.0), (2.5, 0.5)])
@@ -433,48 +438,75 @@ def _assert_kernel_matches_plain(got, want):
                      <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
 
 
-@pytest.mark.parametrize("p,a_lam", [(1, 0.2), (2, 1e-3), (7, 2.0), (16, 2.0)],
-                         ids=["p1_shape_below_1", "p2", "p7", "p16"])
-def test_linreg_kernel_matches_plain(dev, p, a_lam):
-    """K6 against its plain version on the same Philox bits: 200 chains (ragged
-    against the 32-thread blocks), n_burn 4, n_keep 6, n_thin 2; beta, lam, tau
-    rtol 1e-4 atol 1e-5, log_post 1e-4 relative."""
+def _linreg_args(dev, p, n_chains, lam0=None, tau0=None, scale_x=1.0):
+    """K6's arguments on a 60-row problem (X scaled by ``scale_x``), every chain
+    started at (0.5, 1.0) unless per-chain rows are given."""
     from openmcmc_tpu_torch.fused import linreg
 
     X, y, extra = _linreg_problem(dev, 60, p, p)
     f32 = dict(dtype=torch.float32, device=dev)
-    G, c, scal = linreg.sufficient_statistics(torch.as_tensor(X, **f32), torch.as_tensor(y, **f32),
-                                              torch.as_tensor(extra["plam_diag"], **f32),
+    plam = torch.as_tensor(extra["plam_diag"], **f32)
+    G, c, scal = linreg.sufficient_statistics(torch.as_tensor(X * scale_x, **f32), torch.as_tensor(y, **f32), plam,
                                               torch.as_tensor(extra["ptau_diag"], **f32))
-    args = [G, c, torch.as_tensor(extra["plam_diag"], **f32), torch.as_tensor(extra["mu"], **f32), scal,
-            torch.full((200,), 0.5, **f32), torch.full((200,), 1.0, **f32)]
-    kw = dict(n_obs=60.0, a_lam=a_lam, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=4, n_keep=6, n_thin=2)
-    before = launches("linreg")
+    if lam0 is None:
+        lam0, tau0 = torch.full((n_chains,), 0.5, **f32), torch.full((n_chains,), 1.0, **f32)
+    return [G, c, plam, torch.as_tensor(extra["mu"], **f32), scal, lam0, tau0]
+
+
+def _linreg_kernel_and_plain(args, kw):
+    """K6 and its plain version on the same Philox bits; asserts one launch, on
+    the pipelined design."""
+    from openmcmc_tpu_torch.fused import linreg
+
+    before = launches("linreg"), profiling_count("linreg.pipelined")
     got = linreg.linreg_sweeps(5, *args, **kw)
     want = linreg.linreg_sweeps_plain(5, *args, **kw)
     torch.cuda.synchronize()
-    assert launches("linreg") == before + 1
-    assert tuple(got["beta"].shape) == (200, 6, p)
+    assert (launches("linreg"), profiling_count("linreg.pipelined")) == (before[0] + 1, before[1] + 1)
+    return got, want
+
+
+@pytest.mark.parametrize("p,a_lam,n_chains,n_burn,n_keep,n_thin", [
+    (1, 0.2, 200, 4, 6, 2), (2, 1e-3, 200, 4, 6, 2), (7, 2.0, 200, 4, 6, 2), (16, 2.0, 200, 4, 6, 2),
+    (8, 2.0, 200, 4, 6, 2), (9, 2.0, 200, 4, 6, 2), (1, 0.2, 4100, 7, 20, 3), (2, 1e-3, 4100, 7, 20, 3),
+    (9, 2.0, 200, 7, 20, 3), (16, 2.0, 4100, 7, 20, 3),
+], ids=["p1_shape_below_1", "p2", "p7", "p16", "p8", "p9", "p1_4100_ragged_tile", "p2_4100_ragged_tile",
+        "p9_ragged_tile", "p16_4100_ragged_tile"])
+def test_linreg_kernel_matches_plain(dev, p, a_lam, n_chains, n_burn, n_keep, n_thin):
+    """K6 against its plain version on the same Philox bits: 200 or 4100 chains
+    (both ragged against the 32-chain blocks); n_burn 4, n_keep 6, n_thin 2, or
+    67 sweeps (n_burn 7, n_keep 20, n_thin 3), which end in a ragged tile at
+    every tile depth and store across tile edges; beta, lam, tau rtol 1e-4
+    atol 1e-5, log_post 1e-4 relative."""
+    args = _linreg_args(dev, p, n_chains)
+    kw = dict(n_obs=60.0, a_lam=a_lam, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=n_burn, n_keep=n_keep, n_thin=n_thin)
+    got, want = _linreg_kernel_and_plain(args, kw)
+    assert tuple(got["beta"].shape) == (n_chains, n_keep, p)
     _assert_kernel_matches_plain(got, want)
 
 
-def test_linreg_kernel_warm_rows_match_plain(dev):
+@pytest.mark.parametrize("p,n_keep,n_thin", [(7, 6, 1), (2, 50, 3), (16, 30, 1)], ids=["p7", "p2_thin3", "p16"])
+def test_linreg_kernel_warm_rows_match_plain(dev, p, n_keep, n_thin):
     """K6 started from per-chain (lam, tau) rows, as a resume starts it (no
-    burn-in), against its plain version: p 7, 200 chains, n_keep 6."""
-    from openmcmc_tpu_torch.fused import linreg
+    burn-in), against its plain version: 200 chains."""
+    args = _linreg_args(dev, p, 200, *_warm_rows(dev, 200, 7))
+    kw = dict(n_obs=60.0, a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=0, n_keep=n_keep, n_thin=n_thin)
+    got, want = _linreg_kernel_and_plain(args, kw)
+    _assert_kernel_matches_plain(got, want)
 
-    p = 7
-    X, y, extra = _linreg_problem(dev, 60, p, p)
-    f32 = dict(dtype=torch.float32, device=dev)
-    G, c, scal = linreg.sufficient_statistics(torch.as_tensor(X, **f32), torch.as_tensor(y, **f32),
-                                              torch.as_tensor(extra["plam_diag"], **f32),
-                                              torch.as_tensor(extra["ptau_diag"], **f32))
-    args = [G, c, torch.as_tensor(extra["plam_diag"], **f32), torch.as_tensor(extra["mu"], **f32), scal,
-            *_warm_rows(dev, 200, 7)]
-    kw = dict(n_obs=60.0, a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=0, n_keep=6, n_thin=1)
-    got = linreg.linreg_sweeps(5, *args, **kw)
-    want = linreg.linreg_sweeps_plain(5, *args, **kw)
-    torch.cuda.synchronize()
+
+@pytest.mark.parametrize("p", [2, 9])
+def test_linreg_exact_redo_matches_plain(dev, p):
+    """K6 where its certificates fail: X at 1e12 puts L[0][0] = sqrt(lam plam_0
+    + tau G_00) above 2^30, the largest root the consumer's certificate
+    accepts, so every tile reruns with the IEEE operators; the draws still match the plain version's
+    (200 chains, 40 sweeps over several tiles). The precondition is checked
+    first, on the starting (lam, tau)."""
+    args = _linreg_args(dev, p, 200, scale_x=1e12)
+    G, plam, lam0, tau0 = args[0].cpu(), args[2].cpu(), args[5].cpu(), args[6].cpu()
+    assert float(torch.sqrt(lam0[0] * plam[0] + tau0[0] * G[0, 0])) > 2**30, "the inputs no longer force the rerun"
+    kw = dict(n_obs=60.0, a_lam=2.0, b_lam=1.0, a_tau=2.0, b_tau=1.0, n_burn=10, n_keep=30, n_thin=1)
+    got, want = _linreg_kernel_and_plain(args, kw)
     _assert_kernel_matches_plain(got, want)
 
 

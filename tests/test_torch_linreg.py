@@ -89,6 +89,26 @@ def test_k6_plain_matches_jax(host_stats, p, n_thin, hyp):  # noqa: F811
     assert_same_draws(got, want, f"K6 p={p}")
 
 
+@pytest.mark.parametrize("a_star", [50.001, 1.001, 0.7], ids=["tau_cell", "lam_cell", "shape_below_1"])
+def test_gamma_value_before_the_rate_is_the_single_draw(a_star):
+    """The identity K6's workers rest on: the Marsaglia-Tsang value made from the
+    Philox words alone (rate 1), divided by the rate afterwards, is the plain
+    single draw ``gamma_mt(a_star, rate, bits)`` on the same bits, bit for bit:
+    at example 3's shapes (a_tau + N/2 and a_lam + p/2 under Gamma(1e-3, 1e-3)
+    with N 100, p 2), at a shape below 1 (the boost) and at rates from 1e-3 to
+    1e4, over 4096 chains of one sweep."""
+    from openmcmc_tpu_torch.fused import prng
+
+    spec = prng._single_spec(a_star, 1)
+    widths = [1] * (2 * spec.rounds + spec.boost)
+    rate = torch.logspace(-3.0, 4.0, 4096, dtype=torch.float32)[:, None]
+    bits = prng.sweep_bits(2**31 + 7919, 4096, 123, widths, "cpu")
+    unit = prng.gamma_mt(a_star, torch.ones_like(rate), prng.SiteStream(bits))
+    want = prng.gamma_mt(a_star, rate, prng.SiteStream(bits))
+    assert bool(torch.all(torch.isfinite(want))) and bool(torch.all(want > 0.0))
+    assert torch.equal(unit / rate, want)
+
+
 def test_k5_plain_matches_jax(host_stats):  # noqa: F811
     """(b) test_spectral.py's problem (N = 80, p = 24, non-unit plam, ptau, mu),
     40 chains, n_thin 2, with noise sd 1.0 in y instead of 0.1. At 0.1 the
