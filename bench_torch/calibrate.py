@@ -8,10 +8,11 @@ checked fit's numbers; then the upper readings, the control on each of
 ``--control-seeds`` seeds at the cell's own size: the plain reference put in
 the program's place and computed in the precision below the configuration's
 (float32 with TF32 matrix products, for float32 with TF32 off), its draws and
-log density judged as the program's are; and the same with the reference in
-float64 (exact draws, which the check must pass). Then, on the same seeds, a
-run of the cell with each planted fault (``faults.py``). Every reading is
-judged by ``check.passes`` against the configuration's limits, as a run is:
+log density judged as the program's are (the configuration's check's
+``control_outputs``); and the same in float64 (exact draws, which the check
+must pass). Then, on the same seeds, a run of the cell with each planted fault
+(``faults.py``, at the model's own fault site where it has one). Every reading is judged by ``check.passes``
+against the configuration's limits of its check's numbers, as a run is:
 ``correct`` in each JSON line, one a reading.
 """
 
@@ -28,24 +29,20 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def control(cell_name: str, seed: int, precision: str, device, overrides=None) -> dict:
     """The check's numbers for exact posterior draws made by the reference in
-    ``precision``, at the cell's size, on the data of the cell's run with ``seed``."""
+    ``precision`` (the configuration's check's ``control_outputs``), at the
+    cell's size, on the data of the cell's run with ``seed``."""
     import torch
 
-    from bench_torch import check, harness
+    from bench_torch import harness
 
     cell = harness.load_cell(ROOT, cell_name, False)
     cfg = {**cell.config, **(overrides or {})}
     gen = torch.Generator(device=device).manual_seed(harness.sub_seed(seed, 0))
     data = cell.model.make_data(cfg, gen, device)
-    problem = cell.reference.Problem(**cell.model.problem(cfg, data))
-    ref = cell.reference.Reference(problem, "float64", device)
-    put = ref if precision == "float64" else cell.reference.Reference(problem, precision, device)
-    chains, keep = cfg["n_chains"], cfg["n_iter"]
-    draws = put.sample(chains * keep, torch.Generator(device=device).manual_seed(harness.sub_seed(seed, 5)))
-    lp = put.log_density(draws["x"], draws["lam"], draws["tau"])
-    outputs = {"x": draws["x"].reshape(chains, keep, -1).float(), "lam": draws["lam"].reshape(chains, keep, 1).float(),
-               "tau": draws["tau"].reshape(chains, keep, 1).float(), "log_post": lp.reshape(chains, keep)}
-    return check.readings(outputs, ref, device)
+    ref = cell.check.reference_for(cell, cfg, data, device)
+    draw_gen = torch.Generator(device=device).manual_seed(harness.sub_seed(seed, 5))
+    outputs = cell.check.control_outputs(ref, precision, cfg["n_chains"], cfg["n_iter"], draw_gen)
+    return cell.check.readings(outputs, ref, device)
 
 
 def main(argv=None) -> int:
@@ -65,7 +62,8 @@ def main(argv=None) -> int:
         print("calibrate: no CUDA device", file=sys.stderr)
         return 2
     for name in args.cells:
-        lims = check.limits(harness.load_cell(ROOT, name, False).config)
+        cell = harness.load_cell(ROOT, name, False)
+        lims = check.limits(cell.config, cell.check.NUMBERS)
         for k in range(args.seeds):
             seed = args.first_seed + 1000 * k
             t0 = time.perf_counter()
@@ -79,12 +77,12 @@ def main(argv=None) -> int:
             for precision in ("tf32", "float64"):
                 t0 = time.perf_counter()
                 got = control(name, seed, precision, torch.device("cuda"))
-                correct = all(check.passes(got[k], lims[k]) for k in check.NUMBERS)
+                correct = all(check.passes(got[k], lims[k]) for k in cell.check.NUMBERS)
                 print(json.dumps({"cell": name, "kind": f"control_{precision}", "seed": seed, "correct": correct,
                                   **got, "seconds": time.perf_counter() - t0}), flush=True)
             for fault in sorted(faults.FAULTS):
                 t0 = time.perf_counter()
-                with faults.planted(fault):
+                with faults.planted(fault, cell.model):
                     out = harness.run_cell(ROOT, name, seed, args.seconds, False, "cuda")
                 print(json.dumps({"cell": name, "kind": f"fault_{fault}", "seed": seed, "correct": out["correct"],
                                   "checked": out["checked"], "failed": out["failed"],

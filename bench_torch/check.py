@@ -16,6 +16,11 @@ float64 after the window has closed:
   out, and draws from another distribution.
 
 A number that is not a number fails.
+
+This is the check of a configuration that names none. One that names its own
+(``checks/<name>.py``) has what this module has, ``NUMBERS``,
+:func:`reference_for`, :func:`readings` and :func:`control_outputs`, and is
+judged by :func:`passes` and :func:`limits` from here.
 """
 
 from __future__ import annotations
@@ -58,6 +63,12 @@ def lp_gap(outputs: dict, reference) -> float:
     return float(torch.max(torch.abs(lp - lp_ref) / torch.clamp(torch.abs(lp_ref), min=1.0)))
 
 
+def reference_for(cell, cfg: dict, data: dict, device):
+    """The float64 plain reference of one fit's posterior: the reference's
+    ``Problem`` of the model's fields."""
+    return cell.reference.Reference(cell.reference.Problem(**cell.model.problem(cfg, data)), "float64", device)
+
+
 def readings(outputs: dict, reference, device) -> dict:
     """The numbers compared for one fit's outputs ({"x", "lam", "tau": (chains,
     draws, k), "log_post": (chains, draws)}) against a float64 reference."""
@@ -72,10 +83,21 @@ def readings(outputs: dict, reference, device) -> dict:
     return {"lp_gap": lp_gap(outputs, reference), "moment_z": worst}
 
 
+def control_outputs(reference, precision: str, chains: int, keep: int, generator: torch.Generator) -> dict:
+    """The model's outputs for exact posterior draws made by the reference in
+    ``precision``, their log density computed in it."""
+    put = reference if precision == "float64" else reference.at(precision)
+    d = put.sample(chains * keep, generator)
+    lp = put.log_density(d["x"], d["lam"], d["tau"])
+    out = {k: d[k].reshape(chains, keep, -1).to(torch.float32) for k in ("x", "lam", "tau")}
+    return {**out, "log_post": lp.reshape(chains, keep)}
+
+
 def passes(value: float, limit: float) -> bool:
     return value <= limit  # False for NaN
 
 
-def limits(config: dict) -> dict:
-    """The limit of each number, as the configuration states it."""
-    return {k: float(config["limits"][k]) for k in NUMBERS}
+def limits(config: dict, numbers=NUMBERS) -> dict:
+    """The limit of each of ``numbers`` (the configuration's check's), as the
+    configuration states it."""
+    return {k: float(config["limits"][k]) for k in numbers}

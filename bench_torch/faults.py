@@ -23,7 +23,8 @@ def stuck(mcmc, result, chains: int) -> None:
 
 def altered(mcmc, result) -> None:
     """One stored value of the latent changed where it is produced, its log
-    posterior not."""
+    posterior not. A model whose last coordinate the posterior may not read (a
+    padded, variable-dimension state) defines its own ``altered(mcmc, result)``."""
     result.store[mcmc.samplers[0].param][3, 7, -1] += 0.25
 
 
@@ -35,15 +36,18 @@ FAULTS = {
 
 
 @contextlib.contextmanager
-def planted(fault: str):
-    """``MCMC.run`` with ``fault`` applied to every result, inside the block."""
+def planted(fault: str, model=None):
+    """``MCMC.run`` with ``fault`` applied to every result, inside the block;
+    ``a_draw_altered`` at ``model``'s own site (``models/<model>.py``'s
+    ``altered``) where it defines one."""
     from openmcmc_tpu_torch.mcmc import MCMC
 
     real = MCMC.run
+    apply = getattr(model, "altered", FAULTS[fault]) if fault == "a_draw_altered" else FAULTS[fault]
 
     def broken(self, *args, **kwargs):
         result = real(self, *args, **kwargs)
-        FAULTS[fault](self, result)
+        apply(self, result)
         return result
 
     MCMC.run = broken

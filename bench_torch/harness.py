@@ -7,8 +7,11 @@ by its name in ``BENCHMARK.json``:
   file): sizes, hyperparameters, ``model`` and ``reference`` (the modules
   ``models/<model>.py``, which builds the program's MCMC and the data, and
   ``reference/<reference>.py``, the plain reference), ``precision`` and the
-  limits of the check;
-- ``counts/<config>.py``: the float32 operations and bytes of one fit;
+  limits of the check; optionally ``check``, the name of the configuration's
+  own check (``checks/<check>.py``, see :func:`load_cell`), else ``check.py``;
+- ``counts/<config>.py``: the float32 operations and bytes of one fit,
+  ``fit(cfg)``, or where the work follows what a fit draws, ``fit_drawn(cfg,
+  outputs)``, taken from each fit's outputs;
 - ``traffic/<traffic>.json``: the engine, same or fresh data, and how many
   fits the check samples;
 - ``metrics/<metric>.py``: a ``read(run)`` that returns the metric or None.
@@ -65,12 +68,19 @@ class Cell:
     reference: object
     counts: object
     metrics: list  # (BENCHMARK.json entry, reader module)
+    check: object = check
 
 
 def load_cell(root: Path, name: str, trace_on: bool) -> Cell:
     """Find the workload ``name`` in ``root/BENCHMARK.json`` and load its files;
     the metrics are the end-to-end ones, or with ``trace_on`` the per-layer
-    ones, that this workload reports."""
+    ones, that this workload reports.
+
+    The check is the configuration's own where its file names one
+    (``"check": "<name>"``): ``checks/<name>.py``, which has what ``check.py``
+    has, ``NUMBERS``, ``reference_for(cell, cfg, data, device)``,
+    ``readings(outputs, reference, device)`` and ``control_outputs(reference,
+    precision, chains, keep, generator)``; else ``check.py``."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     work = {w["name"]: w for w in bench["workloads"]}
     if name not in work:
@@ -84,7 +94,8 @@ def load_cell(root: Path, name: str, trace_on: bool) -> Cell:
     return Cell(name=name, chips=wl["chips"], config_name=wl["config"], config=config, traffic=traffic,
                 model=load_module(HERE / "models" / f"{config['model']}.py"),
                 reference=load_module(HERE / "reference" / f"{config['reference']}.py"),
-                counts=load_module(HERE / "counts" / f"{wl['config']}.py"), metrics=metrics)
+                counts=load_module(HERE / "counts" / f"{wl['config']}.py"), metrics=metrics,
+                check=load_module(HERE / "checks" / f"{config['check']}.py") if "check" in config else check)
 
 
 def reader_path(metric: str) -> Path:
@@ -107,7 +118,7 @@ class Run:
     setup_s: float
     precision: str
     sweeps: int    # per fit
-    flop: float    # the configuration's float32 operations per fit
+    flop: float    # the configuration's float32 operations per fit (with ``fit_drawn``, the window's mean)
     bytes: float   # and bytes
     walls: list = field(default_factory=list)
     ess: list = field(default_factory=list)
@@ -173,7 +184,8 @@ def measure(root: Path, name: str, seed: int, seconds: float, trace_on: bool, de
     rng = np.random.default_rng(np.random.SeedSequence([seed % 2**64, 3]))
     picks = rng.choice(np.arange(1, span), size=min(int(traffic["check_fits"]) - 1, span - 1), replace=False)
     checked_at = {0, *(int(i) for i in picks)}
-    flop, n_bytes = cell.counts.fit(cfg)
+    drawn = getattr(cell.counts, "fit_drawn", None)
+    flop, n_bytes = cell.counts.fit(cfg) if drawn is None else (0.0, 0.0)
     run = Run(setup_s=0.0, precision=cfg["precision"], sweeps=cfg["n_burn"] + cfg["n_iter"], flop=flop, bytes=n_bytes)
     kept = []  # (fit index, data, host copies of the fit's outputs)
     i = 0
@@ -190,10 +202,15 @@ def measure(root: Path, name: str, seed: int, seconds: float, trace_on: bool, de
             outputs = cell.model.outputs(result)
             run.walls.append(wall)
             run.ess.append(float(torch.mean(ess_per_column(outputs["x"]))))
+            if drawn is not None:
+                fit_flop, fit_bytes = drawn(cfg, outputs)
+                flop, n_bytes = flop + fit_flop, n_bytes + fit_bytes
             if i in checked_at:
                 kept.append((i, data, {k: v.to("cpu", copy=True) for k, v in outputs.items()}))
             del result, outputs
             i += 1
+    if drawn is not None and run.walls:
+        run.flop, run.bytes = flop / len(run.walls), n_bytes / len(run.walls)
     if trace_on:
         run.traces = window.traces()
     memory_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
@@ -202,17 +219,17 @@ def measure(root: Path, name: str, seed: int, seconds: float, trace_on: bool, de
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    lims = check.limits(cfg)
-    worst = {k: 0.0 for k in check.NUMBERS}
+    numbers = cell.check.NUMBERS
+    lims = check.limits(cfg, numbers)
+    worst = {k: 0.0 for k in numbers}
     failed, refs = 0, {}
     for _, fit_data, outputs in kept:
         key = id(fit_data)
         if key not in refs:
-            fields = cell.model.problem(cfg, fit_data)
-            refs[key] = cell.reference.Reference(cell.reference.Problem(**fields), "float64", device)
-        got = check.readings(outputs, refs[key], device)
-        failed += not all(check.passes(got[k], lims[k]) for k in check.NUMBERS)
-        for k in check.NUMBERS:  # the worst over the checked fits; NaN, once read, stays
+            refs[key] = cell.check.reference_for(cell, cfg, fit_data, device)
+        got = cell.check.readings(outputs, refs[key], device)
+        failed += not all(check.passes(got[k], lims[k]) for k in numbers)
+        for k in numbers:  # the worst over the checked fits; NaN, once read, stays
             worst[k] = worst[k] if worst[k] != worst[k] else (got[k] if got[k] != got[k] else max(worst[k], got[k]))
     correct = failed == 0 and len(kept) > 0
 
@@ -232,7 +249,7 @@ def measure(root: Path, name: str, seed: int, seconds: float, trace_on: bool, de
         out["breakdown"] = trace.breakdown(fenced)
         out["traced_fits"] = {"fenced": len(fenced), "unfenced": len(run.traces) - len(fenced)}
     out["checked"] = len(kept)
-    out["checks"] = {k: {"value": worst[k], "limit": lims[k]} for k in check.NUMBERS}
+    out["checks"] = {k: {"value": worst[k], "limit": lims[k]} for k in numbers}
     return out, run
 
 

@@ -71,7 +71,7 @@ class Reference:
     def __init__(self, problem: Problem, precision: str = "float64", device="cpu"):
         if precision not in ("float64", "tf32"):
             raise ValueError(f"precision must be float64 or tf32, got {precision}")
-        self.precision = precision
+        self.problem, self.precision = problem, precision
         self.dtype = torch.float64 if precision == "float64" else torch.float32
         self.device = torch.device(device)
         f = dict(dtype=self.dtype, device=self.device)
@@ -154,6 +154,10 @@ class Reference:
         self.lam, self.tau = torch.exp(self.u), torch.exp(self.v)
 
     # -- what the check compares -------------------------------------------------
+
+    def at(self, precision: str) -> "Reference":
+        """The same posterior in another precision."""
+        return Reference(self.problem, precision, self.device)
 
     def moments(self) -> dict:
         """Posterior mean and variance of x's coordinates, lam and tau: {name: (mean (k,), var (k,))}."""

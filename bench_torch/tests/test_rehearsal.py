@@ -1,19 +1,22 @@
 """A small run of every cell on the CPU's plain path, for control flow; the
-entry point without a card; the result line's keys; the imports; and that a
-configuration, a traffic mix and a metric are added as files alone."""
+cells' result lines pinned at one seed; the entry point without a card; the
+result line's keys; the imports; and that a configuration, a traffic mix and
+a metric, and a configuration's own check, count, fault site and small sizes,
+are added as files alone."""
 
 import json
 import re
 import shutil
 import subprocess
 import sys
-import textwrap
 
 import pytest
+import torch
+from conftest import CONFIG_OF, HERE, RJ_CELL, WORKLOADS, copy_with, run_in, small_sizes
+from fixed_fits import ending_after
 
 from bench_torch import harness
 
-WORKLOADS = ["smoother_ex4.fused", "linreg_ex3.fused"]
 SEED = 2**31 + 977  # above 32 signed bits: the entry takes any whole seed
 REQUIRED = ["correct", "attempted", "failed", "metrics", "device"]
 
@@ -28,8 +31,38 @@ def check_line(out, traced):
 
 
 def test_every_workload_is_a_benchmark_cell(root):
+    """Every cell of BENCHMARK.json runs here: its configuration has small sizes."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
-    assert [w["name"] for w in bench["workloads"]] == WORKLOADS
+    assert WORKLOADS and [w["name"] for w in bench["workloads"]] == WORKLOADS
+    for workload in WORKLOADS:
+        assert set(small_sizes(CONFIG_OF[workload])) <= set(harness.load_cell(root, workload, False).config)
+
+
+PINNED = sorted(p.stem for p in (HERE / "pinned").glob("*.json"))
+
+
+@pytest.fixture
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("workload", PINNED)
+def test_result_line_is_pinned(root, small, workload, one_thread):
+    """At one seed, the small sizes, a fixed number of fits and one torch
+    thread, every field of the result line but the timed metrics' values, and
+    the numbers the metrics read but the times, equal what the harness gave
+    before a configuration could bring its own check and count
+    (``pinned/<workload>.json``, made by ``pinned/record.py`` from that tree):
+    the checks bit for bit."""
+    pin = json.loads((HERE / "pinned" / f"{workload}.json").read_text())
+    with ending_after(harness, workload, pin["fits"], root):
+        out, run = harness.measure(root, workload, pin["seed"], 1e9, False, "cpu", overrides=small(workload))
+    got = {k: out[k] for k in pin["line"] if k != "metrics"}
+    assert {**got, "metrics": sorted(out["metrics"])} == pin["line"]
+    assert {k: getattr(run, k) for k in pin["run"]} == pin["run"]
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
@@ -81,32 +114,14 @@ def test_nothing_imports_jax_the_jax_package_or_the_old_scripts(root):
         assert not FORBIDDEN.search(path.read_text()), path
 
 
-def copy_with(root, tmp_path, entries):
-    """The benchmark and a link to the program in ``tmp_path``, with ``entries``
-    ({key: [entry, ...]}) added to its BENCHMARK.json."""
-    shutil.copytree(root / "bench_torch", tmp_path / "bench_torch", ignore=shutil.ignore_patterns("__pycache__"))
-    (tmp_path / "openmcmc_tpu_torch").symlink_to(root / "openmcmc_tpu_torch")
-    bench = json.loads((root / "BENCHMARK.json").read_text())
-    for key, more in entries.items():
-        bench[key] += more
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    return tmp_path / "bench_torch"
-
-
 def run_copy(tmp_path, workload, overrides, trace_on=False):
     """A small CPU run of a workload of the copy, in a process of its own."""
-    script = textwrap.dedent(f"""
-        import json, sys
-        sys.path.insert(0, {str(tmp_path)!r})
-        from pathlib import Path
+    return run_in(tmp_path, f"""
         from bench_torch import harness
-        cell = harness.load_cell(Path({str(tmp_path)!r}), {workload!r}, {trace_on})
-        out = harness.run_cell(Path({str(tmp_path)!r}), {workload!r}, 5, 0.5, {trace_on}, "cpu", {overrides!r})
+        cell = harness.load_cell(ROOT, {workload!r}, {trace_on})
+        out = harness.run_cell(ROOT, {workload!r}, 5, 0.5, {trace_on}, "cpu", {overrides!r})
         print(json.dumps({{"metrics": [m["name"] for m, _ in cell.metrics], "out": out}}))
-    """)
-    got = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True, text=True, timeout=300)
-    assert got.returncode == 0, got.stderr
-    return json.loads(got.stdout.strip().splitlines()[-1])
+    """)["out"]
 
 
 def test_every_metric_has_a_reader(root):
@@ -129,7 +144,7 @@ def test_a_split_metric_reads_its_quantity(root, small):
 def test_a_config_a_traffic_mix_and_a_metric_are_added_as_files(root, tmp_path):
     """A dummy configuration, traffic mix and end-to-end metric in a copy: files
     and BENCHMARK.json entries only; the harness finds and runs them."""
-    here = copy_with(root, tmp_path, {
+    here = copy_with(tmp_path, {
         "configs": [{"name": "dummy", "source": "https://example.org", "file": "bench_torch/configs/dummy.json",
                      "reduced": [], "why": "a test"}],
         "workloads": [{"name": "dummy.dummy_mix", "config": "dummy", "traffic": "dummy_mix", "chips": 1,
@@ -146,3 +161,65 @@ def test_a_config_a_traffic_mix_and_a_metric_are_added_as_files(root, tmp_path):
     res = run_copy(tmp_path, "dummy.dummy_mix", None)
     assert res["metrics"] == ["setup_s", "dummy_count"]
     assert res["out"]["correct"] and res["out"]["metrics"]["dummy_count"]["value"] >= 1
+
+
+@pytest.fixture(scope="module")
+def rj_run(rj_root):
+    """A small CPU run of the reversible-jump configuration in its copy: its
+    result line as ``report`` prints it, the :class:`Run`'s counts, and the
+    stored counts of every fit of the window."""
+    return run_in(rj_root, f"""
+        sys.path.insert(0, str(ROOT / "bench_torch" / "tests"))
+        from bench_torch import harness
+        from fixed_fits import ending_after
+        from openmcmc_tpu_torch.mcmc import MCMC
+
+        counts, real = [], MCMC.run
+
+        def run(self, *args, **kwargs):
+            result = real(self, *args, **kwargs)
+            counts.append(result.store["n_basis"][..., 0, 0].tolist())
+            return result
+
+        MCMC.run = run
+        small = json.loads((ROOT / "bench_torch" / "tests" / "small" / "rj_prior.json").read_text())
+        with ending_after(harness, {RJ_CELL!r}, 2, ROOT):
+            out, r = harness.measure(ROOT, {RJ_CELL!r}, {SEED}, 1e9, False, "cpu", overrides=small)
+        harness.report(out)
+        print(json.dumps({{"out": out, "flop": r.flop, "bytes": r.bytes, "counts": counts[-out["attempted"]:],
+                          "cfg": {{**harness.load_cell(ROOT, {RJ_CELL!r}, False).config, **small}}}}))
+    """)
+
+
+def test_a_config_brings_its_own_check_count_fault_site_and_small_sizes(rj_root, rj_run):
+    """The reversible-jump configuration's check (``checks/count_marginal.py``),
+    reference, count (``fit_drawn``), model with its fault site and small sizes
+    are new files under ``tests/rj_prior/``, added to a copy with its entries
+    alone; the harness runs it and prints that check's numbers last, in the
+    result line and on standard error."""
+    added = {str(p.relative_to(HERE / "rj_prior")) for p in (HERE / "rj_prior").rglob("*.*")
+             if "__pycache__" not in p.parts}
+    assert all(not (HERE.parent / name).exists() for name in added)  # none of them is a file the benchmark has
+    out = rj_run["out"]["out"]
+    check_line(out, traced=False)
+    assert list(out["checks"]) == ["lp_gap", "count_z"]
+    assert out["correct"] and out["checked"] == 2 and out["attempted"] == 2
+    assert set(out["metrics"]) == {"setup_s", "ess_per_s.rj_prior"}
+    tail = rj_run["stderr"].strip().splitlines()[-2:]
+    assert [line.split()[1] for line in tail] == ["lp_gap", "count_z"]
+
+
+def test_fit_drawn_is_the_windows_mean_of_each_fits_stored_counts(rj_root, rj_run):
+    """``Run.flop`` of a configuration with ``fit_drawn`` is the mean over the
+    window's fits of each fit's work at its stored counts, summed here by hand."""
+    counts = harness.load_module(rj_root / "bench_torch" / "counts" / "rj_prior.py")
+    cfg, got = rj_run["out"]["cfg"], rj_run["out"]
+    per_fit = []
+    for fit in got["counts"]:
+        draws = [k for chain in fit for k in chain]
+        stored = sum(float(counts.flop_per_sweep(k, cfg["n_max"], cfg["n_data"])) for k in draws)
+        per_fit.append(stored * (cfg["n_burn"] + cfg["n_iter"]) / cfg["n_iter"])
+    assert len(per_fit) == 2 and per_fit[0] != per_fit[1]
+    assert got["flop"] == pytest.approx(sum(per_fit) / len(per_fit), rel=1e-12)
+    chains, keep, p = cfg["n_chains"], cfg["n_iter"], cfg["n_max"]
+    assert got["bytes"] == 4 * (cfg["n_data"] + chains * (3 * p + 7) + chains * keep * (8 + 3 * p))
