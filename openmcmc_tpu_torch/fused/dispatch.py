@@ -663,7 +663,7 @@ def _match_rj(mcmc) -> Optional[Callable]:
         if sp_y is None or sp_y[1] != tau_name:
             return None
         pen = mcmc.data.get(sp_y[0])
-        if not isinstance(pen, st.Diagonal) or not bool(torch.all(pen.diag_ == 1.0)):
+        if not isinstance(pen, st.Diagonal) or not bool(to_host(torch.all(pen.diag_ == 1.0))):
             return None
         hyp_tau = _gamma_hypers(mcmc, tau_name)
         tau0 = _initial_scalar(mcmc, tau_name)
@@ -698,7 +698,7 @@ def _match_rj(mcmc) -> Optional[Callable]:
             and b_dist.mean.allocation == b_dist.precision.allocation):
         return None
     alloc = mcmc.data.get(b_dist.mean.allocation)
-    if alloc is None or isinstance(alloc, st.STRUCTURED_TYPES) or bool(torch.any(alloc != 0)):
+    if alloc is None or isinstance(alloc, st.STRUCTURED_TYPES) or bool(to_host(torch.any(alloc != 0))):
         return None
     mu_b = _scalar(mcmc, b_dist.mean.param)
     tau_b = _scalar(mcmc, b_dist.precision.param)
@@ -727,9 +727,10 @@ def _match_rj(mcmc) -> Optional[Callable]:
     stream = bool(set(mcmc.store_names) & {beta, theta, omega})
     if stream and _jax_rj_stream_bytes(mcmc.n_chains, mcmc.n_iter, mcmc.n_thin, lik, n_max) > RJ_STREAM_CAP_BYTES:
         return None
-    host = {name: _host_array(init[name]).astype(np.float64) for name in (beta, theta, omega)}
-    k0 = float(_host_array(init[count]).reshape(()))
-    X_host = _host_array(X).astype(np.float64).reshape(-1)
+    # the host copies the runner uploads every fit, each read from the card once, at the match
+    host = {name: to_host(init[name]).numpy().astype(np.float64) for name in (beta, theta, omega)}
+    k0 = float(to_host(init[count]).reshape(()))
+    X_host = to_host(X).numpy().astype(np.float64).reshape(-1)
     step = {s.param: float(s.step_size.reshape(())) for s in (mala, rw_th, rw_om)}
 
     def run(seed, bit_source=None, resume=None):

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from openmcmc_tpu_torch.fused import prng
-from openmcmc_tpu_torch.fused.layout import store_index
+from openmcmc_tpu_torch.fused.layout import store_index, to_host, upload
 from openmcmc_tpu_torch.utils import profiling
 
 MAX_N_MAX = 32
@@ -230,14 +230,14 @@ def init_rows(n_chains, n_max, beta0, theta0, omega0, k0, tau0=None, counters=No
     p = int(n_max)
 
     def rows(v, width):
-        t = torch.as_tensor(np.asarray(v.detach().cpu() if torch.is_tensor(v) else v, np.float32))
+        t = torch.as_tensor(np.asarray(to_host(v) if torch.is_tensor(v) else v, np.float32))
         return t.reshape(-1, width).expand(n_chains, width) if t.numel() == width else t.reshape(n_chains, width)
 
     parts = [rows(beta0, p), rows(theta0, p), rows(omega0, p), rows(k0, 1)]
     if tau0 is not None:
         parts.append(rows(tau0, 1))
     parts.append(rows(np.zeros(6, np.float32) if counters is None else counters, 6))
-    return torch.cat(parts, dim=1).to(device=device, dtype=torch.float32).contiguous()
+    return upload(torch.cat(parts, dim=1), device)
 
 
 # ---------------------------------------------------------------------------
@@ -697,23 +697,25 @@ def prepare(seed, X, n_burn, n_iter, n_chains, n_max, beta0, theta0, omega0, k0,
             match_limits=(-10.0, 10.0), match_scale=1.0, step_mmala=0.5, step_theta=0.1, step_omega=0.1,
             stream_params=False, n_thin=1, init=None, y=None, a_tau=2.0, b_tau=1.0, tau0=1.0, device="cuda"):
     """The kernel's inputs for :func:`run_fused_rj`'s arguments: the float32 data
-    [X | y] and initial rows on ``device``, and the :class:`RjConfig`."""
-    X = np.asarray(X.detach().cpu() if torch.is_tensor(X) else X, np.float32).reshape(-1)
+    [X | y] and initial rows on ``device``, and the :class:`RjConfig`. Each
+    copy to the card is one counted upload (``fused/layout.upload``), each
+    read from it one counted ``to_host``."""
+    X = np.asarray(to_host(X) if torch.is_tensor(X) else X, np.float32).reshape(-1)
     n_data, p, lik = X.shape[0], int(n_max), y is not None
     parts = [X]
     if lik:
-        yv = np.asarray(y.detach().cpu() if torch.is_tensor(y) else y, np.float32).reshape(-1)
+        yv = np.asarray(to_host(y) if torch.is_tensor(y) else y, np.float32).reshape(-1)
         if yv.shape[0] != n_data:
             raise ValueError(f"y has {yv.shape[0]} entries but X has {n_data}")
         parts.append(yv)
-    data = torch.as_tensor(np.concatenate(parts), dtype=torch.float32, device=device).contiguous()
+    data = upload(np.concatenate(parts), device)
     nc = int(n_chains)
     if init is None:
         rows = init_rows(nc, p, beta0, theta0, omega0, float(k0), tau0 if lik else None, device=device)
     else:
         counters = init.get("counters")
         if counters is not None:
-            counters = np.asarray(counters.detach().cpu() if torch.is_tensor(counters) else counters).reshape(6, nc).T
+            counters = np.asarray(to_host(counters) if torch.is_tensor(counters) else counters).reshape(6, nc).T
         rows = init_rows(nc, p, init["beta"], init["theta"], init["omega"], init["k"],
                          init["tau"] if lik else None, counters, device=device)
     config = make_config(
@@ -744,7 +746,8 @@ def run_fused_rj(seed, X, n_burn, n_iter, n_chains, n_max, beta0, theta0, omega0
     proposal_theta, proposal_omega; (chains,), accumulated over burn-in and
     sampling), n_proposals, tau (chains, n_iter) with a likelihood, and
     beta/theta/omega (chains, n_iter, n_max) when ``stream_params``."""
-    data, rows, config = prepare(seed, X, n_burn, n_iter, n_chains, n_max, beta0, theta0, omega0, k0, **kw)
+    with profiling.trace_annotated("fused.prepare"):
+        data, rows, config = prepare(seed, X, n_burn, n_iter, n_chains, n_max, beta0, theta0, omega0, k0, **kw)
     draws = rj_sweeps(data, rows, int(n_chains), config=config, bit_source=bit_source)
     p, lik = config.prm.p, bool(config.prm.lik)
     out = {

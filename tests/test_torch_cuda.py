@@ -868,12 +868,15 @@ def test_gamma_kernel_matches_plain(dev, shape, shapes):
 def _cell_mcmc(dev, config):
     """The MCMC of a benchmark configuration's model at its sizes (reference
     example 4's smoother over 100 points with 8192 chains, example 3's
-    regression on 100 observations with 4096), warmed up: its match, the
-    eigenbasis and the kernel library are cached."""
-    from torch_models import linreg_mcmc, smoother_mcmc
+    regression on 100 observations with 4096, the reversible-jump regression
+    on 50 points with n_max 20 and 2048 chains, 100 + 200 sweeps), warmed up:
+    its match, the eigenbasis and the kernel library are cached."""
+    from torch_models import linreg_mcmc, rj_regression_mcmc, smoother_mcmc
 
     if config == "smoother_ex4":
         mcmc = smoother_mcmc(7, p=100, n_chains=8192, n_burn=200, n_iter=500, device=dev)
+    elif config == "rj_regression":
+        mcmc, _ = rj_regression_mcmc(7, n_max=20, n_data=50, n_chains=2048, n_burn=100, n_iter=200, device=dev)
     else:
         mcmc = linreg_mcmc(7, n=100, n_chains=4096, n_burn=1000, n_iter=1000, device=dev)
     mcmc.run(engine="auto")
@@ -881,7 +884,7 @@ def _cell_mcmc(dev, config):
     return mcmc
 
 
-@pytest.mark.parametrize("config", ["smoother_ex4", "linreg_ex3"])
+@pytest.mark.parametrize("config", ["smoother_ex4", "linreg_ex3", "rj_regression"])
 def test_counted_uploads_are_the_profilers_copies(dev, config):
     """Per fit of each benchmark configuration's model, the tracer's ``h2d.copies``
     (and no other host-to-device copy) is what the profiler sees: its count of
@@ -903,7 +906,7 @@ def test_counted_uploads_are_the_profilers_copies(dev, config):
     assert len(copies) == sum(per_fit)
 
 
-@pytest.mark.parametrize("config", ["smoother_ex4", "linreg_ex3"])
+@pytest.mark.parametrize("config", ["smoother_ex4", "linreg_ex3", "rj_regression"])
 def test_counted_host_reads_are_the_synchronising_operations(dev, config):
     """Over 20 fits of each benchmark configuration's model, the first a match
     miss (a new run configuration), every synchronising operation that
@@ -934,3 +937,48 @@ def test_counted_host_reads_are_the_synchronising_operations(dev, config):
     where = {k: syncs.count(k) for k in sorted(set(syncs))}
     assert len(mcmc._match_cache) == matches + 1 and delta["sync.host_reads"] > 0
     assert len(syncs) == delta["sync.host_reads"] + delta["h2d.copies"], (delta, where)
+
+
+def test_rj_regression_streams_what_k11_writes_and_counts_its_uploads(dev):
+    """At the benchmark cell's shape (n_max 20, 50 points, 2048 chains, 3000 +
+    5000 sweeps), ``MCMC.run(engine="auto")`` stores exactly what one K11
+    launch writes on inputs built without the counted uploads, as the path
+    built them before it counted them (``torch.as_tensor`` of the host data and
+    rows): k, log_post, tau_y and the streamed beta, theta, omega, bit for bit.
+    The fit uploads the data [X | y] and the initial rows, two counted copies
+    of 4 (2 n_data + chains (3 n_max + 8)) bytes, and reads nothing back on a
+    cached match."""
+    from openmcmc_tpu_torch.fused import rj
+    from openmcmc_tpu_torch.utils import profiling
+    from torch_models import rj_regression_mcmc
+
+    n_max, n_data, chains = 20, 50, 2048
+    mcmc, data = rj_regression_mcmc(11, n_max=n_max, n_data=n_data, n_chains=chains, n_burn=3000, n_iter=5000,
+                                    device=dev)
+    mcmc.run(engine="auto")  # the match, cached
+    torch.cuda.synchronize()
+    with profiling.record() as rec:
+        res = mcmc.run(engine="auto")
+    torch.cuda.synchronize()
+    assert res.engine == "fused_rj"
+    counts = next(iter(rec.runs.values()))
+    assert counts.get("h2d.copies") == 2 and counts.get("launch.rj") == 1 and "sync.host_reads" not in counts
+    assert counts.get("h2d.bytes") == 4 * (2 * n_data + chains * (3 * n_max + 8))
+
+    init = mcmc.initial_chain_state
+    row = np.concatenate([init[name].detach().cpu().numpy().reshape(-1) for name in ("beta", "theta", "omega")]
+                         + [[float(init["n_basis"].reshape(())), 100.0], np.zeros(6)]).astype(np.float32)
+    rows = torch.as_tensor(np.tile(row, (chains, 1)), device=dev)
+    inputs = torch.as_tensor(np.concatenate([data["X"], data["y"]]).astype(np.float32), device=dev)
+    # b_tau as the matcher reads it from the card: 0.01 in float32
+    config = rj.make_config(n_max, n_data, rho=8.0, a_tau=2.0, b_tau=float(np.float32(0.01)), likelihood=True,
+                            stream=True, n_burn=3000, n_keep=5000, seed=mcmc.seed & 0x7FFFFFFF, n_chains=chains)
+    want = rj.rj_sweeps_kernel(inputs, rows, chains, config=config)
+    torch.cuda.synchronize()
+    st = res.store
+    assert torch.equal(st["n_basis"][..., 0, 0], want[:, :, 0].to(torch.int32))
+    assert torch.equal(res.log_post, want[:, :, 1])
+    assert torch.equal(st["tau_y"][..., 0, 0], want[:, :, 8])
+    assert torch.equal(st["beta"][..., 0], want[:, :, 9:9 + n_max])
+    assert torch.equal(st["theta"][..., 0, :], want[:, :, 9 + n_max:9 + 2 * n_max])
+    assert torch.equal(st["omega"][..., 0, :], want[:, :, 9 + 2 * n_max:])
