@@ -8,7 +8,10 @@ flagship smoother (bench.py's model: p = 100 RW1 GMRF, 8192 chains, 200 burn-in
 and 500 stored sweeps) through both of the port's paths:
 
 - ``MCMC(...).run(engine="auto")``, the fused path: one launch of the
-  spectral-smoother kernel (K1), its draws held against the plain version;
+  spectral-smoother kernel (K1), which writes each stored w, and one of the
+  store kernel, which turns the stored rows into b = V w in place, its draws
+  held against the plain version; the two kernels are then timed apart, by
+  CUDA events and by the profiler;
 - ``MCMC(...).run(engine="generic")``, the generic driver: one launch of the
   canonical tridiagonal kernel (K3) per sweep, its posterior means held against
   the fused run's within the Monte Carlo bound.
@@ -607,18 +610,24 @@ def main_plain(dev):
 
 
 def main_path_phase(mcmc, want):
-    """MCMC.run(engine="auto") with the counts at 0 around it, one K1 launch, its
-    store against the plain version's run, its posterior moments."""
+    """MCMC.run(engine="auto") with the counts at 0 around it, one K1 launch and
+    one store-kernel launch (counter ``spectral_smoother.store_kernel`` up by
+    one), its store against the plain version's run, its posterior moments."""
+    from openmcmc_tpu_torch.utils import profiling
+
     reset_launches()
+    routed = profiling.counters().get("spectral_smoother.store_kernel", 0)
     t0 = time.perf_counter()
     res = mcmc.run(engine="auto")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    routed = profiling.counters().get("spectral_smoother.store_kernel", 0) - routed
     if res.engine != "fused_smoother_spectral":
         raise AssertionError(f"main path dispatched to {res.engine}")
-    if launches != only("spectral_smoother", 1):
-        raise AssertionError(f"fused path: kernel launches {launches}, not one spectral_smoother launch")
+    if launches != only("spectral_smoother", 1, spectral_store=1) or routed != 1:
+        raise AssertionError(f"fused path: kernel launches {launches}, {routed} store-kernel routes, not one "
+                             "spectral_smoother and one spectral_store launch")
     tau_mean = check_store(res, "fused path")
     b = res.store["b"]
     log("main", f"MCMC.run(engine='auto'): engine {res.engine}, kernel launches {launches}, "
@@ -638,14 +647,24 @@ def main_path_phase(mcmc, want):
 
 
 def timing_phase(mcmc, args, kw, hyp, ess_b, plain_ms, smi):
-    """K1's time, the bound and MCMC.run end to end; ``plain_ms`` is the main
-    path's check call of the plain version."""
+    """K1's time (the wrapper's call; its sweep kernel and its store kernel
+    apart, by CUDA events and by the profiler), the bounds and MCMC.run end to
+    end; ``plain_ms`` is the main path's check call of the plain version."""
+    from torch.profiler import ProfilerActivity, profile
+
     from openmcmc_tpu_torch.fused import spectral
 
     def kernel():
         return spectral.smoother_sweeps_kernel(SEED, *args, **kw, **hyp)
 
-    ms = cuda_ms(kernel, 5)
+    ms, sweep_ms, store_ms = split_ms(kernel, 5)
+    reps = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel()
+        torch.cuda.synchronize()
+    prof_ms = {name: device_times_us(prof, f"{name}_kernel")[1] / 1e3 / reps
+               for name in ("spectral_smoother", "spectral_store")}
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -660,11 +679,20 @@ def timing_phase(mcmc, args, kw, hyp, ess_b, plain_ms, smi):
     n_flop = N_CHAINS * (n_sweeps * (K1_FLOP_PER_COORD * p + K1_FLOP_PER_SWEEP)
                          + n_keep * (2 * p * p + K1_FLOP_PER_STORE))
     bound_ms, bound_by = bound(n_bytes, n_flop)
-    log("time", f"{smi}: spectral kernel {ms:.3f} ms (median of 5), plain {plain_ms:.1f} ms (the check's call), "
-        f"bound {bound_ms:.3f} ms ({bound_by}: {n_flop:.3g} FLOP, {n_bytes:.3g} B), "
-        f"MCMC.run end to end {1e3 * e2e:.3f} ms (median of 5)")
+    rows = N_CHAINS * n_keep
+    store_flop = 2.0 * rows * p * p
+    store_bound_ms, store_bound_by = bound(4.0 * (2 * rows * p + p * p), store_flop)
+    log("time", f"{smi}: spectral kernel {ms:.3f} ms (median of 5): sweep kernel {sweep_ms:.4f} ms, "
+        f"store kernel {store_ms:.4f} ms ({store_flop / store_ms / 1e9:.1f} TFLOP/s, bound "
+        f"{store_bound_ms:.4f} ms, {store_bound_by}) by CUDA events; by the profiler "
+        f"{prof_ms['spectral_smoother']:.4f} and {prof_ms['spectral_store']:.4f} ms a call (mean of {reps}); "
+        f"plain {plain_ms:.1f} ms (the check's call), bound {bound_ms:.3f} ms ({bound_by}: {n_flop:.3g} "
+        f"FLOP, {n_bytes:.3g} B), MCMC.run end to end {1e3 * e2e:.3f} ms (median of 5)")
     log("time", f"{smi}: ESS/s {ess_b / (ms / 1e3):.4g} on kernel time, {ess_b / e2e:.4g} end to end")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "run_sweep_ms": sweep_ms, "run_store_ms": store_ms, "store_bound_ms": store_bound_ms,
+            "run_sweep_profiler_ms": prof_ms["spectral_smoother"],
+            "run_store_profiler_ms": prof_ms["spectral_store"]}
 
 
 def tridiag_inputs(dev, n_chains, p, seed):
@@ -1250,7 +1278,7 @@ def linreg_checks(tag, mcmc, res, kernel_fn, plain_fn, args, kw, short, gen_mcmc
 
 
 def split_ms(call, reps):
-    """Medians of ``reps`` calls of a spectral sweep wrapper (K5 or K9): the whole
+    """Medians of ``reps`` calls of a spectral sweep wrapper (K1, K5 or K9): the whole
     call, its sweep kernel (from the call's start to the store's) and its store
     kernel (the store wrapper's launches), all by CUDA events on one stream."""
     from openmcmc_tpu_torch.fused import spectral
@@ -1421,10 +1449,11 @@ def store_inputs(module):
 
 
 def store_phase(smi, w, V, launches):
-    """The store kernel alone at the main path's shape, on the w rows of a whole
-    K5 run: against the plain product (rtol 1e-5, atol 1e-5; the count of values
-    that differ), its time (a fresh copy of the rows before each call, outside
-    the events), the plain version's and torch.matmul's, and its bound."""
+    """The store kernel alone at K5's and K9's shape (p = 256, the 256-column
+    tile), on the w rows of a whole K5 run: against the plain product (rtol
+    1e-5, atol 1e-5; the count of values that differ), its time (a fresh copy
+    of the rows before each call, outside the events), the plain version's
+    and torch.matmul's, and its bound."""
     from openmcmc_tpu_torch.fused import spectral
 
     w = w.reshape(-1, w.shape[-1])
@@ -1971,7 +2000,8 @@ def resume_phase(dev, smi, fused_moments):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
-        if res.engine != "fused_smoother_spectral" or launches != only("spectral_smoother", RS_CHUNKS):
+        if res.engine != "fused_smoother_spectral" or launches != only("spectral_smoother", RS_CHUNKS,
+                                                                         spectral_store=RS_CHUNKS):
             raise AssertionError(f"resume: run_chunked ran {res.engine} with kernel launches {launches}")
         check_store(res, "run_chunked")
         keys = [mcmc.seed]
@@ -2656,7 +2686,9 @@ def main():
     torch.cuda.empty_cache()
     k9, k9_store_launches = mmala_phase(dev, smi, wide=True)
     torch.cuda.empty_cache()
-    store = store_phase(smi, store_rows, store_v, {"linreg_wide": k5_store_launches, "mmala_wide": k9_store_launches})
+    store_launches = {"fused": launches["spectral_store"], "linreg_wide": k5_store_launches,
+                      "mmala_wide": k9_store_launches}
+    store = store_phase(smi, store_rows, store_v, store_launches)
     del store_rows, store_v
     torch.cuda.empty_cache()
     gamma_elem = gamma_elem_phase(dev)

@@ -138,7 +138,7 @@ def library() -> ctypes.CDLL:
     lib.mmala_launch.restype = ctypes.c_int
     lib.spectral_mmala_launch.argtypes = [_P] * 11
     lib.spectral_mmala_launch.restype = ctypes.c_int
-    lib.spectral_store_launch.argtypes = [_P, _P, ctypes.c_int, ctypes.c_longlong, _P]
+    lib.spectral_store_launch.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P]
     lib.spectral_store_launch.restype = ctypes.c_int
     lib.gamma_elem_draws_launch.argtypes = [ctypes.c_uint32] + [_P] * 4 + [ctypes.c_int, _P]
     lib.gamma_elem_draws_launch.restype = ctypes.c_int

@@ -14,21 +14,28 @@
 // (one Philox block per four elements, site 0), the two quadratic forms reduce
 // with __shfl_xor_sync (a butterfly, so every lane holds the same bits), and
 // the (lam, tau) pair is drawn by lane 0 (lam) and lane 1 (tau) side by side,
-// then broadcast with __shfl_sync. On stored sweeps (in-kernel thinning with
-// store_index semantics, openmcmc_tpu/fused/layout.py:6) the warp computes
-// b = V w with lanes over field rows, so each b row is written coalesced,
-// straight into the driver's (chains, n_keep, p) layout. V is held transposed
-// (VT[k * p + i] = V[i, k]) in shared memory when it fits (4 p^2 bytes, p up to
-// about 230), else read from global memory, where it stays L2-resident up to
-// p = 1024 and streams beyond (p <= 8192 works, slowly).
+// then broadcast with __shfl_sync. Stored sweeps follow store_index semantics
+// (in-kernel thinning, openmcmc_tpu/fused/layout.py:6), each into the stored
+// (chains, n_keep, p) layout. Where p <= 256 (store_w) each lane writes its four
+// w straight from registers into b's row, one 16-byte store where the row is
+// aligned, and spectral_store.cu then turns every stored row into b = V w in
+// place, one register-tiled product over all of them. Above p = 256, past that
+// product's widest tile, the warp computes b = V w itself (spectral_store.cuh)
+// with lanes over field rows, V held transposed (VT[k * p + i] = V[i, k]) in
+// global memory, L2-resident up to p = 1024 and streamed beyond (p <= 8192
+// works, slowly).
 //
 // What bounds it at the main path's shapes (p = 100, 8192 chains, 700 sweeps,
-// 500 stored): the store is 8192 * 500 * 100 * 4 B = 1.64 GB of writes (about
-// 0.5 ms of HBM time), and V w is 8.2e10 fp32 FLOP on the CUDA cores, each FMA
-// fed by one shared-memory load -- the matvec, not memory, is the bound. A
-// later change can move V w to the tensor cores with a 3xTF32 split (plain TF32
-// would break the full-fp32 invariant).
+// 500 stored): the sweeps' issue -- per coordinate a share of a Philox block, an
+// inverse-CDF normal, the w draw and the quadratic forms, one dependent chain a
+// warp -- and the store of w, 8192 * 500 * 100 * 4 B = 1.64 GB of writes (about
+// 0.5 ms of HBM time, under the sweeps). No shared memory: blocks an SM are
+// bounded by registers alone. The per-chain b = V w above p = 256 is bounded by
+// its loads: every FMA reads V from L1/L2 and no element of V is reused across
+// chains.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "layout.cuh"
 #include "prng.cuh"
@@ -54,30 +61,28 @@ struct SmootherParams {
   float a_tau_m1;
   GammaSpec g_lam;
   GammaSpec g_tau;
+  int32_t store_w;  // 1: write w for spectral_store.cu (p <= 256); 0: b = V w here
 };
 
 static constexpr int kMaxSmem = 232448;  // 227 KB of dynamic shared memory per block
 
-template <bool V_SMEM>
+// STORE_W: write w on stored sweeps; else b = V w from VT (global memory) and a
+// per-warp w buffer in shared memory. vec: 16-byte w stores (p % 4 == 0 and out_b
+// 16-byte aligned).
+template <bool STORE_W>
 __global__ void spectral_smoother_kernel(SmootherParams prm, const float* __restrict__ VT,
                                          const float* __restrict__ svec, const float* __restrict__ wy,
                                          const float* __restrict__ wmu, const float* __restrict__ lam0,
                                          const float* __restrict__ tau0, float* __restrict__ out_b,
                                          float* __restrict__ out_lam, float* __restrict__ out_tau,
-                                         float* __restrict__ out_lp) {
+                                         float* __restrict__ out_lp, int vec) {
   extern __shared__ float smem[];
   const unsigned FULL = 0xffffffffu;
   const int p = prm.p;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  float* vt_s = smem;
-  float* wbuf = smem + (V_SMEM ? (size_t)p * p : 0) + (size_t)warp * p;
-  if (V_SMEM) {
-    for (int i = threadIdx.x; i < p * p; i += blockDim.x) vt_s[i] = VT[i];
-    __syncthreads();
-  }
-  const float* vt = V_SMEM ? vt_s : VT;
+  float* wbuf = smem + (size_t)warp * p;  // STORE_W = false only
   const int chain = blockIdx.x * warps + warp;
   if (chain >= prm.n_chains) return;  // no block-wide barrier follows
 
@@ -88,10 +93,14 @@ __global__ void spectral_smoother_kernel(SmootherParams prm, const float* __rest
   const GammaSpec gspec = tau_lane ? prm.g_tau : prm.g_lam;
 
   for (int it = 0; it < prm.n_sweeps; ++it) {
+    const int idx = store_index(it, prm.n_burn, prm.n_thin);
+    float* ob = idx < 0 ? nullptr : out_b + ((size_t)chain * prm.n_keep + idx) * p;  // b's row, stored sweeps
+
     // ---- NormalNormal: b | y, lam, tau is diagonal in w = V^-1 b
     float q_lam = 0.0f, q_tau = 0.0f;
     for (int g = lane; g < n_groups; g += 32) {
       Philox4 blk = site_block(prm.seed, (uint32_t)chain, (uint32_t)it, 0u, (uint32_t)g);
+      float w4[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         int k = 4 * g + e;
@@ -104,7 +113,18 @@ __global__ void spectral_smoother_kernel(SmootherParams prm, const float* __rest
           q_lam += sk * r * r;
           float t = wyk - w;
           q_tau += t * t;
-          wbuf[k] = w;
+          w4[e] = w;
+          if (!STORE_W) wbuf[k] = w;
+        }
+      }
+      if (STORE_W && ob) {
+        if (vec) {
+          *reinterpret_cast<float4*>(ob + 4 * g) = make_float4(w4[0], w4[1], w4[2], w4[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (4 * g + e < p) ob[4 * g + e] = w4[e];
+          }
         }
       }
     }
@@ -120,7 +140,6 @@ __global__ void spectral_smoother_kernel(SmootherParams prm, const float* __rest
     lam = __shfl_sync(FULL, drawn, 0);
     tau = __shfl_sync(FULL, drawn, 1);
 
-    const int idx = store_index(it, prm.n_burn, prm.n_thin);
     if (idx < 0) continue;
 
     // ---- analytic log posterior (the TPU kernel's convention)
@@ -135,10 +154,12 @@ __global__ void spectral_smoother_kernel(SmootherParams prm, const float* __rest
       out_lp[o] = log_like + log_prior_b + log_lam + log_tau;
     }
 
-    // ---- b = V w, lanes over field rows: coalesced row writes
-    __syncwarp();
-    store_vw(vt, wbuf, out_b + ((size_t)chain * prm.n_keep + idx) * p, p, lane);
-    __syncwarp();
+    if (!STORE_W) {
+      // ---- b = V w, lanes over field rows: coalesced row writes
+      __syncwarp();
+      store_vw(VT, wbuf, ob, p, lane);
+      __syncwarp();
+    }
   }
 }
 
@@ -147,29 +168,23 @@ extern "C" int spectral_smoother_launch(const SmootherParams* prm, const float* 
                                         const float* tau0, float* out_b, float* out_lam, float* out_tau,
                                         float* out_lp, cudaStream_t stream) {
   const int p = prm->p;
-  const size_t vbytes = (size_t)p * p * sizeof(float);
-  const size_t wbytes = (size_t)p * sizeof(float);
   int warps = 8;
-  bool v_smem = vbytes + warps * wbytes <= (size_t)kMaxSmem;
-  if (!v_smem) {
-    while (warps > 1 && warps * wbytes > (size_t)kMaxSmem) warps /= 2;
+  if (prm->store_w) {
+    const int vec = p % 4 == 0 && ((uintptr_t)out_b & 15) == 0;
+    const int blocks = (prm->n_chains + warps - 1) / warps;
+    spectral_smoother_kernel<true><<<blocks, 32 * warps, 0, stream>>>(*prm, VT, svec, wy, wmu, lam0, tau0,
+                                                                       out_b, out_lam, out_tau, out_lp, vec);
+    return (int)cudaGetLastError();
   }
-  const size_t smem = (v_smem ? vbytes : 0) + warps * wbytes;
+  const size_t wbytes = (size_t)p * sizeof(float);
+  while (warps > 1 && warps * wbytes > (size_t)kMaxSmem) warps /= 2;
+  const size_t smem = warps * wbytes;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const int blocks = (prm->n_chains + warps - 1) / warps;
-  cudaError_t err;
-  if (v_smem) {
-    err = cudaFuncSetAttribute(spectral_smoother_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    spectral_smoother_kernel<true><<<blocks, 32 * warps, smem, stream>>>(
-        *prm, VT, svec, wy, wmu, lam0, tau0, out_b, out_lam, out_tau, out_lp);
-  } else {
-    err = cudaFuncSetAttribute(spectral_smoother_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    spectral_smoother_kernel<false><<<blocks, 32 * warps, smem, stream>>>(
-        *prm, VT, svec, wy, wmu, lam0, tau0, out_b, out_lam, out_tau, out_lp);
-  }
+  const cudaError_t err = cudaFuncSetAttribute(spectral_smoother_kernel<false>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  spectral_smoother_kernel<false><<<blocks, 32 * warps, smem, stream>>>(*prm, VT, svec, wy, wmu, lam0, tau0,
+                                                                        out_b, out_lam, out_tau, out_lp, 0);
   return (int)cudaGetLastError();
 }

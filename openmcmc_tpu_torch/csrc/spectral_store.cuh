@@ -1,13 +1,14 @@
-// The store of the spectral smoother (spectral_smoother.cu, K1): one chain's
-// stored draw b = V w, computed by its warp with lanes over field rows (four rows
-// per lane in flight), each row written coalesced into ob. vt[k * p + i] =
-// V[i, k] sits in shared or global memory; wbuf holds w. Each output sums
+// The store of the spectral smoother (spectral_smoother.cu, K1) above p = 256:
+// one chain's stored draw b = V w, computed by its warp with lanes over field
+// rows (four rows per lane in flight), each row written coalesced into ob.
+// vt[k * p + i] = V[i, k] sits in global memory; wbuf holds w. Each output sums
 // fmaf(V[i, k], w_k, acc) over k in ascending order, as spectral_store.cu does.
 //
-// What bounds it: loads. Every FMA reads V from shared memory or, where V does
-// not fit beside the buffers, from L1/L2, and no element of V is reused across
-// chains. K5 and K9 left it for spectral_store.cu, one register-tiled product
-// over every stored row at once.
+// What bounds it: loads. Every FMA reads V from L1/L2, and no element of V is
+// reused across chains. Up to p = 256, its widest tile, K1, K5 and K9 leave it
+// for spectral_store.cu, one register-tiled product over every stored row at
+// once; its in-place strip of rows (p by 68 floats) would fill shared memory at
+// p of about 580, far below K1's 8192.
 #pragma once
 
 __device__ __forceinline__ void store_vw(const float* __restrict__ vt, const float* wbuf, float* __restrict__ ob,

@@ -15,9 +15,10 @@ makes every sweep elementwise in w = V^-1 b:
     (b - mu0)'P0(b - mu0) = sum s (w - wmu)^2,   (y - b)'D(y - b) = sum (wy - w)^2,
 
 and the stored latent is b = V w. :func:`smoother_sweeps` runs all sweeps for
-all chains: on a CUDA tensor it launches ``csrc/spectral_smoother.cu``, on a CPU
-tensor it takes :func:`smoother_sweeps_plain`, the same sweep as a Python loop
-over sweeps vectorised over chains.
+all chains: on a CUDA tensor it launches ``csrc/spectral_smoother.cu`` and, for
+p <= MAX_P, the store kernel below, on a CPU tensor it takes
+:func:`smoother_sweeps_plain`, the same sweep as a Python loop over sweeps
+vectorised over chains.
 
 Linear regression, y ~ N(X beta, (tau diag(ptau))^-1),
 beta ~ N(mu, (lam diag(plam))^-1), p <= 256, uses the pencil of G = X'PX and
@@ -68,7 +69,7 @@ from openmcmc_tpu_torch.fused import prng
 from openmcmc_tpu_torch.fused.layout import chain_rows, store_index, upload
 from openmcmc_tpu_torch.utils import profiling
 
-MAX_P = 256  # spectral linear regression; past it the generic driver runs
+MAX_P = 256  # the store kernel's widest tile; past it spectral linear regression is not matched
 PAD = 8  # p is rounded up to this in the JAX kernel's (p_pad, chains) sums
 SUM_WINDOW = 32
 MAX_P_SMOOTHER = 1024  # tridiagonal P0 past this goes to the Thomas kernel (K4, fused/gmrf_smoother.py)
@@ -143,6 +144,7 @@ class SmootherParams(ctypes.Structure):
         ("a_tau_m1", ctypes.c_float),
         ("g_lam", prng.GammaSpec),
         ("g_tau", prng.GammaSpec),
+        ("store_w", ctypes.c_int32),
     ]
 
 
@@ -228,8 +230,11 @@ def _check_inputs(V, vectors: dict, lam0, tau0):
 def smoother_sweeps_kernel(seed, V, s, wy, wmu, lam0, tau0, *, logdet_p0, logdet_d, a_lam, b_lam,
                            a_tau, b_tau, n_burn, n_keep, n_thin=1):
     """Launch ``csrc/spectral_smoother.cu`` on CUDA tensors (arguments as
-    :func:`smoother_sweeps_plain`). Launches on the current stream, does not
-    synchronise."""
+    :func:`smoother_sweeps_plain`). Where p <= MAX_P it writes each stored
+    sweep's w into b's row and :func:`spectral_store_kernel` then turns the rows
+    into b = V w (counter ``spectral_smoother.store_kernel``); above, past the
+    store kernel's widest tile, it computes b = V w itself. Launches on the
+    current stream, does not synchronise."""
     _check_inputs(V, {"s": s, "wy": wy, "wmu": wmu}, lam0, tau0)
     if V.device.type != "cuda":
         raise ValueError(f"spectral smoother kernel: expected CUDA tensors, got {V.device}")
@@ -239,15 +244,16 @@ def smoother_sweeps_kernel(seed, V, s, wy, wmu, lam0, tau0, *, logdet_p0, logdet
 
     n_chains, p = lam0.shape[0], V.shape[0]
     p_real = float(p)
+    store_w = p <= MAX_P
     g_lam, g_tau, _ = prng.gamma_pair_specs(a_lam + 0.5 * p_real, a_tau + 0.5 * p_real)
     prm = SmootherParams(
         seed=int(seed) & 0xFFFFFFFF, n_chains=n_chains, p=p, n_sweeps=n_burn + n_keep * n_thin,
         n_burn=n_burn, n_thin=n_thin, n_keep=n_keep, b_lam=b_lam, b_tau=b_tau,
         p_real=p_real, p_log2pi=p_real * prng.LOG_2PI, logdet_p0=logdet_p0, logdet_d=logdet_d,
         lgam_lam=_lgam(a_lam, b_lam), lgam_tau=_lgam(a_tau, b_tau),
-        a_lam_m1=a_lam - 1.0, a_tau_m1=a_tau - 1.0, g_lam=g_lam, g_tau=g_tau,
+        a_lam_m1=a_lam - 1.0, a_tau_m1=a_tau - 1.0, g_lam=g_lam, g_tau=g_tau, store_w=store_w,
     )
-    VT = V.t().contiguous()
+    VT = None if store_w else V.t().contiguous()
     out_b = torch.empty((n_chains, n_keep, p), dtype=torch.float32, device=V.device)
     out = {k: torch.empty((n_chains, n_keep), dtype=torch.float32, device=V.device)
            for k in ("lam", "tau", "log_post")}
@@ -255,12 +261,15 @@ def smoother_sweeps_kernel(seed, V, s, wy, wmu, lam0, tau0, *, logdet_p0, logdet
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream(V.device).cuda_stream
         err = lib.spectral_smoother_launch(
-            ctypes.byref(prm), VT.data_ptr(), s.data_ptr(), wy.data_ptr(), wmu.data_ptr(),
-            lam0.data_ptr(), tau0.data_ptr(), out_b.data_ptr(), out["lam"].data_ptr(),
+            ctypes.byref(prm), None if VT is None else VT.data_ptr(), s.data_ptr(), wy.data_ptr(),
+            wmu.data_ptr(), lam0.data_ptr(), tau0.data_ptr(), out_b.data_ptr(), out["lam"].data_ptr(),
             out["tau"].data_ptr(), out["log_post"].data_ptr(), stream,
         )
     profiling.count("launch.spectral_smoother")
     _build.check(err, "spectral_smoother")
+    if store_w:
+        profiling.count("spectral_smoother.store_kernel")
+        spectral_store_kernel(out_b, V)
     return {"b": out_b, **out}
 
 
@@ -364,10 +373,11 @@ def window_sums(terms: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the stored draws of K5 and K9: beta = V w over every stored row at once
+# the stored draws of K1 (p <= MAX_P), K5 and K9: b = V w over every stored row at once
 # ---------------------------------------------------------------------------
 
-STORE_DEPTH, STORE_COLS = 16, 256  # csrc/spectral_store.cu's k-tile rows and tile columns (kDepth, kCols)
+STORE_DEPTH = 16  # csrc/spectral_store.cu's k-tile rows (kDepth)
+STORE_COLS = (128, 256)  # its column tiles (kCols); the narrowest that holds p is taken
 
 
 @profiling.traced("kernel.spectral_store")
@@ -376,13 +386,24 @@ def spectral_store_plain(w, V):
     return torch.matmul(w, V.T)
 
 
+def store_operand(V):
+    """V' as ``csrc/spectral_store.cu`` takes it: (p rounded up to STORE_DEPTH,
+    the narrowest of STORE_COLS that holds p), V' in the top-left (p, p) block.
+    The padding is left unset: the kernel sums no padded k and stores no padded
+    column."""
+    p = V.shape[0]
+    cols = next(c for c in STORE_COLS if p <= c)
+    vt = torch.empty((-(-p // STORE_DEPTH) * STORE_DEPTH, cols), dtype=torch.float32, device=V.device)
+    vt[:p, :p] = V.t()
+    return vt
+
+
 @profiling.traced("kernel.spectral_store")
 def spectral_store_kernel(rows, V):
     """Launch ``csrc/spectral_store.cu``: the (..., p) ``rows`` (contiguous
     float32 on the card, p <= MAX_P) become rows V' in place, each output summed
-    by fmaf in ascending k. V' is handed over padded with zeros to (p rounded up
-    to STORE_DEPTH, STORE_COLS), the kernel's tile. Launches on the current
-    stream, does not synchronise; returns ``rows``."""
+    by fmaf in ascending k, V' handed over as :func:`store_operand` pads it.
+    Launches on the current stream, does not synchronise; returns ``rows``."""
     p = V.shape[0]
     if V.dim() != 2 or V.shape[1] != p or not 1 <= p <= MAX_P:
         raise ValueError(f"spectral store: V must be (p, p) with p <= {MAX_P}, got {tuple(V.shape)}")
@@ -394,12 +415,12 @@ def spectral_store_kernel(rows, V):
                              f"{t.dtype} on {t.device}")
     from openmcmc_tpu_torch import _build
 
-    vt = torch.zeros((-(-p // STORE_DEPTH) * STORE_DEPTH, STORE_COLS), dtype=torch.float32, device=V.device)
-    vt[:p, :p] = V.t()
+    vt = store_operand(V)
     lib = _build.library()
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream(V.device).cuda_stream
-        err = lib.spectral_store_launch(rows.data_ptr(), vt.data_ptr(), p, rows.numel() // p, stream)
+        err = lib.spectral_store_launch(rows.data_ptr(), vt.data_ptr(), p, vt.shape[1], rows.numel() // p,
+                                        stream)
     profiling.count("launch.spectral_store")
     _build.check(err, "spectral_store")
     return rows

@@ -48,12 +48,22 @@ def test_prng_draws_kernel_matches_plain(dev, a1, a2):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
 
+def store_routes() -> tuple:
+    """The store kernel's launches and the K1 launches routed to it, so far."""
+    return launches("spectral_store"), profiling_count("spectral_smoother.store_kernel")
+
+
 @pytest.mark.parametrize(
     "p,n_chains,n_thin,a_lam",
-    [(1, 64, 1, 0.2), (12, 40, 1, 2.0), (100, 96, 2, 2.0), (300, 16, 2, 2.0)],
-    ids=["p1_shape_below_1", "p12", "p100_smem", "p300_global"],
+    [(1, 64, 1, 0.2), (12, 40, 1, 2.0), (100, 96, 2, 2.0), (300, 16, 2, 2.0), (128, 40, 1, 2.0),
+     (129, 40, 2, 2.0)],
+    ids=["p1_shape_below_1", "p12", "p100_smem", "p300_global", "p128_narrow_tile", "p129_wide_tile"],
 )
 def test_spectral_kernel_matches_plain(dev, p, n_chains, n_thin, a_lam):
+    """K1 against its plain version. Up to p = 256 K1 writes w and the store
+    kernel makes b = V w (128-column tile to p = 128, 256 above: one launch and
+    one ``spectral_smoother.store_kernel`` count a call); at p = 300 K1 stores
+    b itself and the store kernel does not run."""
     from openmcmc_tpu_torch.fused import spectral
 
     rng = np.random.default_rng(p)
@@ -65,11 +75,13 @@ def test_spectral_kernel_matches_plain(dev, p, n_chains, n_thin, a_lam):
     args += [torch.full((n_chains,), 3.0, **f32), torch.full((n_chains,), 1.0, **f32)]
     kw = dict(logdet_p0=prep["logdet_p0"], logdet_d=prep["logdet_d"], a_lam=a_lam, b_lam=1.0, a_tau=2.0,
               b_tau=1.0, n_burn=4, n_keep=6, n_thin=n_thin)
-    before = launches("spectral_smoother")
+    before, routes = launches("spectral_smoother"), store_routes()
     got = spectral.smoother_sweeps(9, *args, **kw)
     want = spectral.smoother_sweeps_plain(9, *args, **kw)
     torch.cuda.synchronize()
     assert launches("spectral_smoother") == before + 1
+    routed = int(p <= 256)
+    assert store_routes() == (routes[0] + routed, routes[1] + routed)
     for name in ("b", "lam", "tau"):
         torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
     assert torch.all(torch.abs(got["log_post"] - want["log_post"])
@@ -105,6 +117,45 @@ def test_spectral_kernel_warm_rows_match_plain(dev):
         torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
     assert torch.all(torch.abs(got["log_post"] - want["log_post"])
                      <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
+
+
+def test_spectral_resume_through_store_kernel_matches_plain(dev, monkeypatch):
+    """A p = 100 smoother resumed by ``MCMC.run(resume=...)`` with n_thin 3: the
+    resume's K1 call, made from per-chain warm rows with no burn-in, writes w
+    and the store kernel turns it into b (one launch of each), and K1 run again
+    on the call's own arguments agrees with its plain version."""
+    from openmcmc_tpu_torch.fused import spectral
+    from torch_models import smoother_mcmc
+
+    mcmc = smoother_mcmc(5, p=100, n_chains=96, n_burn=6, n_iter=4, device=dev)
+    mcmc.n_thin = 3
+    first = mcmc.run(engine="auto")
+    real, calls = spectral.smoother_sweeps, []
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(spectral, "smoother_sweeps", spy)
+    before, routes = launches("spectral_smoother"), store_routes()
+    res = mcmc.run(engine="auto", resume=first)
+    torch.cuda.synchronize()
+    assert first.engine == res.engine == "fused_smoother_spectral" and len(calls) == 1
+    assert launches("spectral_smoother") == before + 1 and store_routes() == (routes[0] + 1, routes[1] + 1)
+    args, kw = calls[0]
+    assert kw["n_burn"] == 0 and kw["n_thin"] == 3 and kw["n_keep"] == 4
+    lam0 = args[5]
+    assert torch.unique(lam0).numel() > 0.9 * lam0.numel(), "the resume's rows are not per chain"
+    kw = {k: v for k, v in kw.items() if k != "bit_source"}
+    got = spectral.smoother_sweeps_kernel(*args, **kw)
+    want = spectral.smoother_sweeps_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name in ("b", "lam", "tau"):
+        torch.testing.assert_close(got[name], want[name], rtol=1e-4, atol=1e-5)
+    assert torch.all(torch.abs(got["log_post"] - want["log_post"])
+                     <= 1e-4 * torch.clamp(torch.abs(want["log_post"]), min=1.0))
+    b = res.store["b"]
+    assert tuple(b.shape) == (96, 4, 100, 1) and bool(torch.all(torch.isfinite(b)))
 
 
 def test_cuda_path_refuses_injected_bits(dev):
@@ -510,14 +561,16 @@ def test_linreg_exact_redo_matches_plain(dev, p):
     _assert_kernel_matches_plain(got, want)
 
 
-@pytest.mark.parametrize("p", [1, 24, 100, 250, 256])
+@pytest.mark.parametrize("p", [1, 24, 100, 250, 256, 128, 129])
 def test_spectral_store_kernel_matches_plain(dev, p):
-    """The store kernel of K5 and K9 alone: 1000 + 37 rows (ragged against its
-    64-row strips) of a larger buffer become rows V' in place, against the plain
-    product within float32 summation-order rounding (rtol 1e-5, atol 1e-5 at
-    O(1) inputs); the 37 rows past them stay untouched; every p but 256 masks
-    columns of the 256-column tile, and p = 1, 24, 100 and 250 end in a ragged
-    k-tile (scalar stores where p is not a multiple of 4)."""
+    """The store kernel of K1, K5 and K9 alone: 1000 + 37 rows (ragged against
+    its 64-row strips) of a larger buffer become rows V' in place, against the
+    plain product within float32 summation-order rounding (rtol 1e-5, atol 1e-5
+    at O(1) inputs); the 37 rows past them stay untouched. p = 1, 24, 100 and
+    128 take the 128-column tile, p = 129, 250 and 256 the 256-column one;
+    every p but 128 and 256 masks columns of its tile, and p = 1, 24, 100, 129
+    and 250 end in a ragged k-tile (scalar stores where p is not a multiple of
+    4)."""
     from openmcmc_tpu_torch.fused import spectral
 
     rng = np.random.default_rng(p)

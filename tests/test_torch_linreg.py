@@ -334,6 +334,17 @@ def test_posterior_matches_jax_generic(generic_problem, route):
         assert abs(f.std() / g.std() - 1.0) < 0.1, name
 
 
+@pytest.mark.parametrize("p,cols", [(1, 128), (100, 128), (128, 128), (129, 256), (256, 256)])
+def test_store_operand_follows_p(p, cols):
+    """V' for the store kernel takes the narrowest column tile that holds p (128
+    up to p = 128, so K1's p = 100 computes 28 masked columns instead of 156),
+    its rows rounded up to the 16-row k-tile, V' in the top-left block."""
+    V = torch.randn(p, p, generator=torch.Generator().manual_seed(p))
+    vt = tspectral.store_operand(V)
+    assert tuple(vt.shape) == (-(-p // 16) * 16, cols) and vt.dtype == torch.float32
+    assert torch.equal(vt[:p, :p], V.t())
+
+
 @pytest.mark.parametrize("case", ["cpu", "non_contiguous", "p_above_256"])
 def test_spectral_store_kernel_refuses(case):
     """The store kernel's wrapper (K5's and K9's beta = V w over the stored rows)
